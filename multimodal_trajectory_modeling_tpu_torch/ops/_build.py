@@ -1,0 +1,103 @@
+"""Build and load the package's CUDA kernels.
+
+At first use, ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into
+one shared library with a plain C interface, in ``_build/`` beside this
+package (listed in ``.gitignore``), and loaded with ``ctypes``.  The
+library's name carries a hash of the sources and flags, so an edit to a
+source triggers a rebuild and a stale library is never loaded.  Nothing
+here runs at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+from pathlib import Path
+
+_PKG = Path(__file__).resolve().parent.parent
+_SRC_DIR = _PKG / "csrc"
+_BUILD_DIR = _PKG / "_build"
+_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_P = ctypes.c_void_p
+_I = ctypes.c_int
+_LL = ctypes.c_longlong
+# argtypes of every exported function: pointers and the stream as void*
+_SIGNATURES = {
+    "mtm_markov_features": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "mtm_markov_em": [
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _LL, _I, _I, _I, _I, _P,
+    ],
+    "mtm_markov_em_max_clusters": [],
+}
+
+
+def _nvcc() -> str:
+    path = shutil.which("nvcc")
+    if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
+        path = "/usr/local/cuda/bin/nvcc"
+    if path is None:
+        raise RuntimeError(
+            "nvcc was not found on PATH or in /usr/local/cuda/bin; the CUDA "
+            "kernels cannot be built"
+        )
+    return path
+
+
+def sources() -> list[Path]:
+    return sorted(_SRC_DIR.glob("*.cu"))
+
+
+def library_path() -> Path:
+    h = hashlib.sha256(" ".join(_FLAGS).encode())
+    for src in sources():
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return _BUILD_DIR / f"libmtm_kernels_{h.hexdigest()[:16]}.so"
+
+
+def _compile(out: Path) -> None:
+    nvcc = _nvcc()
+    _BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = out.with_suffix(f".{os.getpid()}.tmp")
+    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, sources())]
+    proc = subprocess.run(cmd, capture_output=True, text=True)
+    out.with_suffix(".log").write_text(
+        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
+    )
+    if proc.returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
+        )
+    os.replace(tmp, out)
+
+
+@functools.cache
+def library() -> ctypes.CDLL:
+    """The kernels' shared library, built on first call if needed."""
+    out = library_path()
+    if not out.exists():
+        _compile(out)
+    lib = ctypes.CDLL(str(out))
+    for name, argtypes in _SIGNATURES.items():
+        fn = getattr(lib, name)
+        fn.argtypes = argtypes
+        fn.restype = _I
+    return lib
+
+
+def check(rc: int, what: str) -> None:
+    """Raise if a launch function returned a nonzero code."""
+    if rc == -1:
+        raise ValueError(f"{what}: the kernel refused its arguments")
+    if rc != 0:
+        raise RuntimeError(f"{what}: CUDA error {rc} at launch")

@@ -1,0 +1,541 @@
+"""Markov EM kernels: Φ materialization (K2) and the Φ-reading EM
+iteration (K1).
+
+Counterpart of ``multimodal_trajectory_modeling_tpu/ops/pallas_markov.py``,
+whose Pallas TPU kernels ``markov_materialize_features`` (:1314) and
+``markov_em_from_features`` (:1464) become the hand-written CUDA kernels in
+``csrc/markov_features.cu`` and ``csrc/markov_em.cu``.
+
+- Layout (``markov_packed_spec``, ``pack_markov_u``,
+  ``markov_compact_spec``): the batch is packed per time step as
+  ``[z_t; x_t; 0-pad]`` on ``s = 8·ceil((d+l)/8)`` rows; every feature of
+  the g-layout (:mod:`.markov`) is then one row of a T-reduced
+  accumulator ``ACC`` of shift products, and Φ keeps only the referenced
+  rows.  The index arrays are identical to the JAX package's.  Unlike
+  there, the instance axis is not padded: the kernels mask the ragged
+  edge.
+- Storage (``PhiQuant``, ``quantize_phi``): Φ may be stored int16 with one
+  scale per row; the scales fold into the score weights and unfold from
+  the statistics, so K1 reads half the bytes.
+- Kernels: each wrapper takes its plain torch version for CPU tensors
+  only.  For CUDA tensors it launches the kernel or raises.  Each wrapper
+  counts its launches in ``.launches``.
+"""
+
+from __future__ import annotations
+
+import functools
+from typing import NamedTuple
+
+import numpy as np
+import torch
+
+from multimodal_trajectory_modeling_tpu_torch.ops import _build
+
+__all__ = [
+    "PhiQuant",
+    "dequantize_phi",
+    "fold_weights",
+    "markov_compact_spec",
+    "markov_em_compact",
+    "markov_em_compact_plain",
+    "markov_em_from_features",
+    "markov_materialize_features",
+    "markov_materialize_features_plain",
+    "markov_packed_spec",
+    "pack_markov_u",
+    "phi_scale_from_absmax",
+    "quantize_phi",
+]
+
+# Instances per block of K1; int16 statistics are summed in int32 inside
+# a block, which holds for up to 65536 instances.
+_EM_CHUNK = 1024
+
+# ----------------------------------------------------------------------
+# layout
+# ----------------------------------------------------------------------
+
+
+def _acc_bases(d: int, l: int):
+    """``(s, ks, base_B, base_F0, base_AID, base_AVM, base_U0, base_EX,
+    Facc)`` of the ACC layout."""
+    s = 8 * ((d + l + 7) // 8)
+    ks = sorted(set(range(d + l)) | set(range(s - d + 1, s + d)))
+    base_B = len(ks) * s
+    base_F0 = base_B + d * s
+    base_AID = base_F0 + d * s
+    base_AVM = base_AID + s
+    base_U0 = base_AVM + s
+    base_EX = base_U0 + s
+    Facc = base_EX + s
+    return s, ks, base_B, base_F0, base_AID, base_AVM, base_U0, base_EX, Facc
+
+
+def markov_packed_spec(T: int, d: int, l: int):
+    """Accumulator layout (``pallas_markov.py:511``).
+
+    Returns ``(s, ks, Facc, rows)``: the step height ``s``, the shifts
+    ``ks`` of the A groups, the ACC row count, and ``rows[f]``, the ACC row
+    that holds g-layout feature ``f``.  The ACC groups are
+
+    - ``A_k`` (k in ks): Σ_t u[st+r]·u[st+r+k]
+    - ``B_k`` (k < d): the same under the vm_{t+1} mask (g2)
+    - ``F0_k`` (k < d): the t=0 products (g6)
+    - ``AID`` Σ_t u_t (g8/g9), ``AVM`` Σ_t vm_{t+1}·u_t (g7), ``U0`` = u_0
+      (g10), ``EXTRA`` = [len, 1, 0…]
+    """
+    s, ks, base_B, base_F0, base_AID, base_AVM, base_U0, base_EX, Facc = (
+        _acc_bases(d, l)
+    )
+    kpos = {k: i for i, k in enumerate(ks)}
+
+    def A(k, r):
+        return kpos[k] * s + r
+
+    rows = []
+    pairs_d = [(i, j) for i in range(d) for j in range(d)]
+    rows += [A(abs(i - j), min(i, j)) for i, j in pairs_d]  # g1
+    rows += [base_B + abs(i - j) * s + min(i, j) for i, j in pairs_d]  # g2
+    rows += [A(s + j - i, i) for i, j in pairs_d]  # g3
+    rows += [
+        A(abs(a - b), d + min(a, b)) for a in range(l) for b in range(l)
+    ]  # g4
+    rows += [A(d + a - i, i) for i in range(d) for a in range(l)]  # g5
+    rows += [base_F0 + abs(i - j) * s + min(i, j) for i, j in pairs_d]  # g6
+    rows += [base_AVM + i for i in range(d)]  # g7
+    rows += [base_AID + i for i in range(d)]  # g8
+    rows += [base_AID + d + a for a in range(l)]  # g9
+    rows += [base_U0 + i for i in range(d)]  # g10
+    rows += [base_EX + 0, base_EX + 1]  # len, const
+    return s, tuple(ks), Facc, np.asarray(rows, np.int64)
+
+
+def markov_compact_spec(T: int, d: int, l: int):
+    """Compact Φ layout (``pallas_markov.py:1249``): ``(Fc_pad, uniq,
+    pos)`` with ``uniq`` the referenced ACC rows in ascending order,
+    ``pos[f]`` the Φ row of g-layout feature ``f``, and ``Fc_pad`` the
+    referenced row count rounded up to 8."""
+    _s, _ks, _Facc, rows = markov_packed_spec(T, d, l)
+    uniq = np.unique(rows)
+    Fc = int(uniq.shape[0])
+    Fc_pad = 8 * ((Fc + 7) // 8)
+    pos = np.searchsorted(uniq, rows).astype(np.int64)
+    return Fc_pad, uniq, pos
+
+
+def _feature_layout(T: int, d: int, l: int, layout: str):
+    """(padded row count, g-layout feature → Φ row) for a Φ layout
+    (``pallas_markov.py:1281``)."""
+    if layout == "compact":
+        Fc_pad, _uniq, pos = markov_compact_spec(T, d, l)
+        return Fc_pad, pos
+    if layout == "canonical":
+        raise NotImplementedError(
+            "the canonical Φ layout comes with the long-T materializer "
+            "(ROADMAP Queue 2, K5)"
+        )
+    raise ValueError(f"unknown Φ layout {layout!r}")
+
+
+@functools.lru_cache(maxsize=None)
+def _positions(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
+    """``pos`` of :func:`markov_compact_spec` as a tensor on ``device``
+    (read by every EM iteration; copied to the device once)."""
+    return torch.as_tensor(_feature_layout(T, d, l, "compact")[1], device=device)
+
+
+def pack_markov_u(
+    z_t: torch.Tensor,  # (T·d, n) transposed latent batch (NaN-padded)
+    x_t: torch.Tensor,  # (T·l, n)
+    *,
+    T: int,
+    d: int,
+    l: int,
+) -> torch.Tensor:
+    """Interleave the batch per time step as ``[z_t; x_t; 0-pad]`` on ``s``
+    rows, non-finite → 0: the packed batch ``u (T·s, n)``
+    (``pallas_markov.py:573``, without its lane padding)."""
+    s = 8 * ((d + l + 7) // 8)
+    n = z_t.shape[1]
+    z3 = z_t.reshape(T, d, n)
+    x3 = x_t.reshape(T, l, n)
+    u = torch.zeros((T, s, n), dtype=z_t.dtype, device=z_t.device)
+    u[:, :d] = torch.where(torch.isfinite(z3), z3, 0.0)
+    u[:, d : d + l] = torch.where(torch.isfinite(x3), x3, 0.0)
+    return u.reshape(T * s, n)
+
+
+# ----------------------------------------------------------------------
+# int16 storage of Φ
+# ----------------------------------------------------------------------
+
+
+class PhiQuant(NamedTuple):
+    """Φ stored int16 with one scale per row: ``Φ ≈ scale[:, None] · q``,
+    the row's largest magnitude on ±32766 (``pallas_markov.py:111``).
+    The EM kernel never dequantizes: the scales fold into the score
+    weights and unfold from the statistics."""
+
+    q: torch.Tensor  # (Fc_pad, n) int16
+    scale: torch.Tensor  # (Fc_pad,) compute dtype
+
+
+def phi_scale_from_absmax(amax: torch.Tensor, dtype) -> torch.Tensor:
+    """Per-row quantization scale from the per-row max |Φ|."""
+    scale = torch.where(amax > 0.0, amax, torch.ones_like(amax)) * (
+        1.0 / 32766.0
+    )
+    return scale.to(dtype)
+
+
+def quantize_phi(
+    phi: torch.Tensor, scale: torch.Tensor | None = None
+) -> PhiQuant:
+    """Quantize Φ (rows = features, columns = instances) to
+    :class:`PhiQuant`, rounding half to even as ``jnp.round`` does.
+    All-zero rows get scale 1."""
+    if scale is None:
+        scale = phi_scale_from_absmax(phi.abs().amax(dim=1), phi.dtype)
+    q = torch.round(phi * (1.0 / scale)[:, None]).to(torch.int16)
+    return PhiQuant(q, scale.to(phi.dtype))
+
+
+def dequantize_phi(pq: PhiQuant) -> torch.Tensor:
+    """The rounded wide Φ (for tests and diagnostics)."""
+    return pq.scale[:, None] * pq.q.to(pq.scale.dtype)
+
+
+# ----------------------------------------------------------------------
+# K2: Φ materialization
+# ----------------------------------------------------------------------
+
+# row kinds of csrc/markov_features.cu
+_ROW_A, _ROW_B, _ROW_F0, _ROW_AID, _ROW_AVM, _ROW_U0 = range(6)
+_ROW_LEN, _ROW_ONE, _ROW_ZERO = 6, 7, 8
+
+
+def _acc_row_table(d: int, l: int) -> np.ndarray:
+    """``(Facc, 3)`` int32: each ACC row as ``(kind, shift k, row r)``,
+    the form in which the CUDA kernel computes it."""
+    s, ks, base_B, base_F0, base_AID, base_AVM, base_U0, base_EX, Facc = (
+        _acc_bases(d, l)
+    )
+    table = np.zeros((Facc, 3), np.int32)
+    for row in range(Facc):
+        if row < base_B:
+            entry = (_ROW_A, ks[row // s], row % s)
+        elif row < base_F0:
+            k, r = divmod(row - base_B, s)
+            # the kernel sums B rows under the mask directly, which equals
+            # the JAX algebra (A_k minus the last step) only while r+k < s
+            entry = (_ROW_B, k, r) if r + k < s else (_ROW_A, k, r)
+        elif row < base_AID:
+            k, r = divmod(row - base_F0, s)
+            entry = (_ROW_F0, k, r)
+        elif row < base_AVM:
+            entry = (_ROW_AID, 0, row - base_AID)
+        elif row < base_U0:
+            entry = (_ROW_AVM, 0, row - base_AVM)
+        elif row < base_EX:
+            entry = (_ROW_U0, 0, row - base_U0)
+        else:
+            r = row - base_EX
+            entry = ({0: _ROW_LEN, 1: _ROW_ONE}.get(r, _ROW_ZERO), 0, r)
+        table[row] = entry
+    return table
+
+
+def _packed_acc_build(u, lens, *, T: int, d: int, s: int, ks: tuple):
+    """The (Facc, n) accumulator of :func:`markov_packed_spec` from the
+    packed batch, with the JAX kernel's algebra (``pallas_markov.py:606``):
+    the vm_{t+1}-masked groups are the unmasked sums minus the last valid
+    step's products."""
+    Ts, n = u.shape
+    zeros = functools.partial(torch.zeros, dtype=u.dtype, device=u.device)
+
+    def shifted(a, k):  # rows shifted up by k, 0-fill
+        return a if k == 0 else torch.cat([a[k:], zeros((k, a.shape[1]))])
+
+    def treduce(p):  # Σ over t of the per-step (s, n) blocks
+        return p.reshape(T, s, n).sum(dim=0)
+
+    rowt = torch.arange(Ts, device=u.device) // s
+    last_mask = (rowt[:, None] + 1 == lens[None, :]).to(u.dtype)
+    ulast = treduce(u * last_mask)
+
+    a_groups = {k: treduce(u * shifted(u, k)) for k in ks}
+    groups = [a_groups[k] for k in ks]  # A_k
+    groups += [a_groups[k] - ulast * shifted(ulast, k) for k in range(d)]
+    u0 = u[:s]
+    groups += [u0 * u[k : k + s] for k in range(d)]  # F0_k
+    aid = u.reshape(T, s, n).sum(dim=0)
+    groups += [aid, aid - ulast, u0]  # AID, AVM, U0
+    extra = zeros((s, n))
+    extra[0] = lens.to(u.dtype)
+    extra[1] = 1.0
+    groups.append(extra)
+    return torch.cat(groups)
+
+
+def _device_index(t: torch.Tensor) -> int:
+    return t.device.index if t.device.index is not None else torch.cuda.current_device()
+
+
+def _check_features_args(u, lens, T, d, l):
+    s = 8 * ((d + l + 7) // 8)
+    if u.ndim != 2 or u.shape[0] != T * s:
+        raise ValueError(f"u must be (T·s, n) = ({T * s}, n), got {tuple(u.shape)}")
+    if lens.shape != (u.shape[1],):
+        raise ValueError(f"lens must be ({u.shape[1]},), got {tuple(lens.shape)}")
+    if lens.device != u.device:
+        raise ValueError("u and lens must be on one device")
+    return s
+
+
+def markov_materialize_features_plain(
+    u: torch.Tensor, lens: torch.Tensor, *, T: int, d: int, l: int
+) -> torch.Tensor:
+    """Plain torch version of :func:`markov_materialize_features`."""
+    s = _check_features_args(u, lens, T, d, l)
+    _s, ks, _Facc, _rows = markov_packed_spec(T, d, l)
+    Fc_pad, uniq, _pos = markov_compact_spec(T, d, l)
+    acc = _packed_acc_build(u, lens, T=T, d=d, s=s, ks=ks)
+    phi = torch.zeros((Fc_pad, u.shape[1]), dtype=u.dtype, device=u.device)
+    phi[: uniq.shape[0]] = acc[torch.as_tensor(uniq, device=u.device)]
+    return phi
+
+
+def markov_materialize_features(
+    u: torch.Tensor,  # (T·s, n) from pack_markov_u
+    lens: torch.Tensor,  # (n,) int32
+    *,
+    T: int,
+    d: int,
+    l: int,
+) -> torch.Tensor:
+    """K2: the per-instance Markov EM features Φ (Fc_pad, n) in the
+    compact layout, in u's dtype; once per fit (``pallas_markov.py:1314``).
+    CUDA tensors launch ``csrc/markov_features.cu`` (float32 or float64,
+    contiguous u, int32 lens); CPU tensors take the plain version."""
+    s = _check_features_args(u, lens, T, d, l)
+    if u.device.type == "cpu":
+        return markov_materialize_features_plain(u, lens, T=T, d=d, l=l)
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    kinds = {torch.float32: 0, torch.float64: 1}
+    if u.dtype not in kinds:
+        raise ValueError(f"u must be float32 or float64, got {u.dtype}")
+    if lens.dtype != torch.int32:
+        raise ValueError(f"lens must be int32, got {lens.dtype}")
+    if not (u.is_contiguous() and lens.is_contiguous()):
+        raise ValueError("u and lens must be contiguous")
+    n = u.shape[1]
+    if n == 0:
+        raise ValueError("empty batch")
+    Fc_pad, uniq, _pos = markov_compact_spec(T, d, l)
+    desc = torch.as_tensor(_acc_row_table(d, l)[uniq], device=u.device)
+    phi = torch.empty((Fc_pad, n), dtype=u.dtype, device=u.device)
+    rc = _build.library().mtm_markov_features(
+        _device_index(u),
+        kinds[u.dtype],
+        u.data_ptr(),
+        lens.data_ptr(),
+        desc.data_ptr(),
+        phi.data_ptr(),
+        n,
+        T,
+        s,
+        int(uniq.shape[0]),
+        Fc_pad,
+        torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    _build.check(rc, "markov_materialize_features")
+    markov_materialize_features.launches += 1
+    return phi
+
+
+markov_materialize_features.launches = 0
+
+# ----------------------------------------------------------------------
+# K1: one EM iteration over Φ
+# ----------------------------------------------------------------------
+
+
+def markov_em_compact_plain(
+    phi: torch.Tensor,
+    prev: torch.Tensor,
+    wc: torch.Tensor,
+    *,
+    assign_mode: str = "argmax",
+):
+    """Plain torch version of :func:`markov_em_compact`: the same outputs
+    from a dense score matrix and one-hot statistics.  Under int16 Φ the
+    statistics are summed exactly (integer sums in float64, then int64)."""
+    if assign_mode not in ("argmax", "prev"):
+        raise ValueError(f"unknown assign_mode {assign_mode!r}")
+    C = wc.shape[0]
+    dtype = wc.dtype
+    valid = prev >= 0
+    if assign_mode == "prev":
+        na = prev
+        switches = torch.zeros((), dtype=torch.int32, device=phi.device)
+        obj = torch.zeros((), dtype=dtype, device=phi.device)
+    else:
+        scores = wc @ phi.to(dtype)  # (C, n)
+        best, na = scores.max(dim=0)  # first maximum
+        na = na.to(torch.int32)
+        switches = ((na != prev) & valid).sum().to(torch.int32)
+        obj = torch.where(valid, best, 0.0).sum()
+    clusters = torch.arange(C, dtype=na.dtype, device=na.device)
+    onehot = (na[None, :] == clusters[:, None]) & valid[None, :]  # (C, n)
+    counts = onehot.sum(dim=1).to(torch.int32)
+    if phi.dtype == torch.int16:
+        macc = (phi.to(torch.float64) @ onehot.T.to(torch.float64)).to(
+            torch.int64
+        )
+    else:
+        macc = phi.to(dtype) @ onehot.T.to(dtype)
+    assign = torch.where(valid, na, C).to(torch.int32)
+    return assign, counts, switches, macc, obj
+
+
+def markov_em_compact(
+    phi: torch.Tensor,  # (Fc_pad, n) int16 payload, or wide float
+    prev: torch.Tensor,  # (n,) int32; < 0 marks rows to leave out
+    wc: torch.Tensor,  # (C, Fc_pad) compact (and scale-) folded weights
+    *,
+    assign_mode: str = "argmax",
+):
+    """K1: one EM iteration over Φ with folded weights.
+
+    Returns ``(assign (n,) int32, counts (C,) int32, switches () int32,
+    macc (Fc_pad, C), obj ())``: first-max assignments (``prev`` itself
+    under ``assign_mode="prev"``), ``C`` where ``prev < 0``; per-cluster
+    member counts, switches against ``prev`` and Σ max score over the
+    valid rows; and the per-cluster sums of Φ's rows — int64 and exact
+    for int16 Φ, else in ``wc``'s dtype.  CUDA tensors launch
+    ``csrc/markov_em.cu``; CPU tensors take the plain version."""
+    if phi.ndim != 2 or prev.shape != (phi.shape[1],):
+        raise ValueError(
+            f"phi (Fc_pad, n) and prev (n,) disagree: {tuple(phi.shape)}, "
+            f"{tuple(prev.shape)}"
+        )
+    if wc.ndim != 2 or wc.shape[1] != phi.shape[0]:
+        raise ValueError(f"wc must be (C, {phi.shape[0]}), got {tuple(wc.shape)}")
+    if not (phi.device == prev.device == wc.device):
+        raise ValueError("phi, prev and wc must be on one device")
+    if assign_mode not in ("argmax", "prev"):
+        raise ValueError(f"unknown assign_mode {assign_mode!r}")
+    if phi.device.type == "cpu":
+        return markov_em_compact_plain(phi, prev, wc, assign_mode=assign_mode)
+    if phi.device.type != "cuda":
+        raise ValueError(f"unsupported device {phi.device}")
+    phi_kinds = {torch.int16: 0, torch.float32: 1, torch.float64: 2}
+    w_kinds = {torch.float32: 1, torch.float64: 2}
+    if phi.dtype not in phi_kinds or wc.dtype not in w_kinds:
+        raise ValueError(f"unsupported dtypes phi {phi.dtype}, wc {wc.dtype}")
+    if phi.dtype != torch.int16 and phi.dtype != wc.dtype:
+        raise ValueError("a wide Φ must have the weights' dtype")
+    if prev.dtype != torch.int32:
+        raise ValueError(f"prev must be int32, got {prev.dtype}")
+    if not (phi.is_contiguous() and prev.is_contiguous() and wc.is_contiguous()):
+        raise ValueError("phi, prev and wc must be contiguous")
+    Fcp, n = phi.shape
+    C = wc.shape[0]
+    if n == 0:
+        raise ValueError("empty batch")
+    lib = _build.library()
+    if C > lib.mtm_markov_em_max_clusters():
+        raise ValueError(
+            f"{C} clusters: the kernel takes at most "
+            f"{lib.mtm_markov_em_max_clusters()}"
+        )
+    argmax = assign_mode == "argmax"
+    pk, wk = phi_kinds[phi.dtype], w_kinds[wc.dtype]
+    quant = phi.dtype == torch.int16
+    part_dtype = torch.int32 if quant else wc.dtype
+    macc_dtype = torch.int64 if quant else wc.dtype
+    nblocks = -(-n // _EM_CHUNK)
+    empty = functools.partial(torch.empty, device=phi.device)
+    part_stats = empty((nblocks, Fcp, C), dtype=part_dtype)
+    part_counts = empty((nblocks, C), dtype=torch.int32)
+    part_sw = empty((nblocks,), dtype=torch.int32)
+    part_obj = empty((nblocks,), dtype=wc.dtype)
+    assign = empty((n,), dtype=torch.int32)
+    counts = empty((C,), dtype=torch.int32)
+    switches = empty((), dtype=torch.int32)
+    macc = empty((Fcp, C), dtype=macc_dtype)
+    obj = empty((), dtype=wc.dtype)
+    rc = lib.mtm_markov_em(
+        _device_index(phi),
+        pk,
+        wk,
+        phi.data_ptr(),
+        prev.data_ptr(),
+        wc.data_ptr(),
+        assign.data_ptr(),
+        part_stats.data_ptr(),
+        part_counts.data_ptr(),
+        part_sw.data_ptr(),
+        part_obj.data_ptr(),
+        macc.data_ptr(),
+        counts.data_ptr(),
+        switches.data_ptr(),
+        obj.data_ptr(),
+        n,
+        Fcp,
+        C,
+        _EM_CHUNK,
+        int(argmax),
+        torch.cuda.current_stream(phi.device).cuda_stream,
+    )
+    _build.check(rc, "markov_em_compact")
+    markov_em_compact.launches += 1
+    return assign, counts, switches, macc, obj
+
+
+markov_em_compact.launches = 0
+
+
+def fold_weights(
+    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None
+) -> torch.Tensor:
+    """K1's weights ``wc (C, Fc_pad)`` from the g-layout ``Wg (C, F)``:
+    features that share a Φ row add up, and int16 ``scale`` folds in."""
+    pos = _positions(T, d, l, Wg.device)
+    Fc_pad = markov_compact_spec(T, d, l)[0]
+    wc = torch.zeros((Wg.shape[0], Fc_pad), dtype=Wg.dtype, device=Wg.device)
+    wc.index_add_(1, pos, Wg)
+    if scale is not None:
+        wc = wc * scale[None, :].to(wc.dtype)
+    return wc
+
+
+def markov_em_from_features(
+    phi,  # (Fc_pad, n) tensor or PhiQuant, from markov_materialize_features
+    prev_assign: torch.Tensor,  # (n,) int32
+    Wg: torch.Tensor,  # (C, F) g-layout weights (+ log π folded)
+    *,
+    T: int,
+    d: int,
+    l: int,
+    assign_mode: str = "argmax",
+):
+    """One EM iteration over Φ with the contract of
+    ``pallas_markov.py:1464``: ``(assign, counts, switches, g (F, C),
+    obj)``.  Folds ``Wg`` into the compact layout (and the int16 scales),
+    runs K1 (:func:`markov_em_compact`) and unfolds its statistics into
+    the g-layout."""
+    scale = None
+    if isinstance(phi, PhiQuant):
+        phi, scale = phi.q, phi.scale
+    pos = _positions(T, d, l, Wg.device)
+    wc = fold_weights(Wg, T=T, d=d, l=l, scale=scale)
+    assign, counts, switches, macc, obj = markov_em_compact(
+        phi, prev_assign, wc, assign_mode=assign_mode
+    )
+    g = macc[pos].to(Wg.dtype)
+    if scale is not None:
+        g = g * scale[pos][:, None].to(g.dtype)
+    return assign, counts, switches, g, obj
