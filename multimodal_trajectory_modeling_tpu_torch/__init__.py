@@ -5,9 +5,11 @@ names its counterpart there and is held against it by the
 ``tests/test_torch_*.py`` suite.  This package imports ``torch`` and never
 ``jax``.
 
-What is ported so far is the Markov EM fast path of
-``MMLinGaussSS_marginalizable(...).train(fast=True)`` for suffix-only
-missingness (variable-length, NaN-suffix-padded trajectories), with its two
+What is ported so far is the Markov EM fast path for suffix-only
+missingness (variable-length, NaN-suffix-padded trajectories):
+``MMLinGaussSS_marginalizable(...).train(fast=True)`` and the slot-pool
+multistart ``train_with_multiple_random_starts(fast=True)``, with its own
+k-means init (no scikit-learn), the gzip-pickle cache, and five
 hand-written CUDA kernels (``ops/markov_kernels.py``, sources in
 ``csrc/``).  Every other route raises ``NotImplementedError`` naming the
 ROADMAP item that will bring it.

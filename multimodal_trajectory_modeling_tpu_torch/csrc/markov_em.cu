@@ -24,9 +24,13 @@
 // - each Φ load is coalesced across the warp (consecutive instances); the
 //   statistics pass rereads the thread's column, mostly from L1/L2;
 // - each block covers `chunk` instances and sums its statistics in shared
-//   memory with atomics.  Under int16 Φ those sums are integers: int32 in
-//   the block (chunk · 32767 < 2^31) and int64 across blocks, so the
-//   statistics are exact and independent of the order of the atomics;
+//   memory.  Under int16 Φ those sums are integers, added with atomics:
+//   int32 in the block (chunk · 32767 < 2^31) and int64 across blocks, so
+//   the statistics are exact and independent of the order of the atomics.
+//   Under wide Φ the block goes through its instances in tiles of
+//   kThreads, and one thread per feature row adds the tile's columns in
+//   instance order (markov_common.cuh:ordered_add, rereading Φ from
+//   L1/L2);
 // - there are no global atomics: every block writes its partial sums, and
 //   a second kernel adds them up in block order.  With the fixed-order
 //   shuffle tree of the objective, every output is the same bit for bit
@@ -35,61 +39,26 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "markov_common.cuh"
+
 namespace {
+
+using mtm::Acc;
+using mtm::block_sum;
+using mtm::fused_ma;
+using mtm::is_nan;
+using mtm::ordered_add;
+using mtm::stat_cols;
 
 constexpr int kThreads = 256;
 constexpr int kWarps = kThreads / 32;
 
-// statistic types: in-block shared/partial (S) and across-block total (G)
-template <typename PhiT, typename WT>
-struct Acc {
-  using S = WT;
-  using G = WT;
-};
-template <typename WT>
-struct Acc<int16_t, WT> {
-  using S = int;
-  using G = long long;
-};
-
-template <typename V>
-__device__ __forceinline__ bool is_nan(V v) {
-  return v != v;
-}
-
-__device__ __forceinline__ float fused_ma(float a, float b, float c) {
-  return fmaf(a, b, c);
-}
-__device__ __forceinline__ double fused_ma(double a, double b, double c) {
-  return fma(a, b, c);
-}
-
-__device__ __forceinline__ void shared_add(int* a, int v) { atomicAdd(a, v); }
-__device__ __forceinline__ void shared_add(float* a, float v) {
-  atomicAdd(a, v);
-}
-__device__ __forceinline__ void shared_add(double* a, double v) {
-  atomicAdd(a, v);
-}
-
-// Sum over the block in a fixed order (shuffle tree, then warps in
-// order); the result is valid in thread 0.
-template <typename V>
-__device__ V block_sum(V v, V* red) {
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_down_sync(0xffffffffu, v, o);
-  if ((threadIdx.x & 31) == 0) red[threadIdx.x >> 5] = v;
-  __syncthreads();
-  V tot = V(0);
-  if (threadIdx.x == 0)
-    for (int w = 0; w < kWarps; ++w) tot += red[w];
-  return tot;
-}
-
 template <typename PhiT, typename WT>
 size_t smem_bytes(int Fcp, int C, int cb) {
-  using SAcc = typename Acc<PhiT, WT>::S;
+  using A = Acc<PhiT, WT>;
   return sizeof(WT) * (kWarps + (size_t)Fcp * cb) +
-         sizeof(SAcc) * (size_t)Fcp * C + sizeof(int) * (C + kWarps);
+         sizeof(typename A::S) * (size_t)Fcp * stat_cols<A::kExact>(C) +
+         sizeof(int) * (C + kWarps + (A::kExact ? 0 : kThreads));
 }
 
 template <typename PhiT, typename WT, int CB, bool ARGMAX>
@@ -102,15 +71,19 @@ __global__ void __launch_bounds__(kThreads)
                      WT* __restrict__ part_obj, int64_t n, int Fcp, int C,
                      int chunk) {
   using SAcc = typename Acc<PhiT, WT>::S;
+  constexpr bool EXACT = Acc<PhiT, WT>::kExact;
   const int cb = ARGMAX ? CB : 0;
+  const int cs = stat_cols<EXACT>(C);
   // layout, widest type first: red (kWarps WT), w (Fcp x cb WT),
-  // acc (Fcp x C SAcc), counts (C int), ired (kWarps int)
+  // acc (Fcp x cs SAcc), counts (C int), ired (kWarps int),
+  // na (kThreads int, wide Φ only)
   extern __shared__ __align__(16) unsigned char smem[];
   WT* s_red = reinterpret_cast<WT*>(smem);
   WT* s_w = s_red + kWarps;
   SAcc* s_acc = reinterpret_cast<SAcc*>(s_w + (size_t)Fcp * cb);
-  int* s_counts = reinterpret_cast<int*>(s_acc + (size_t)Fcp * C);
+  int* s_counts = reinterpret_cast<int*>(s_acc + (size_t)Fcp * cs);
   int* s_ired = s_counts + C;
+  int* s_na = s_ired + kWarps;
 
   const int tid = threadIdx.x;
   if (ARGMAX) {
@@ -119,7 +92,7 @@ __global__ void __launch_bounds__(kThreads)
       s_w[e] = c < C ? wc[(size_t)c * Fcp + f] : WT(0);
     }
   }
-  for (int e = tid; e < Fcp * C; e += kThreads) s_acc[e] = SAcc(0);
+  for (int e = tid; e < Fcp * cs; e += kThreads) s_acc[e] = SAcc(0);
   for (int e = tid; e < C; e += kThreads) s_counts[e] = 0;
   __syncthreads();
 
@@ -127,41 +100,54 @@ __global__ void __launch_bounds__(kThreads)
   const int64_t end = start + chunk < n ? start + chunk : n;
   WT obj = WT(0);
   int sw = 0;
-  for (int64_t i = start + tid; i < end; i += kThreads) {
-    const int p = prev[i];
-    const bool valid = p >= 0;
-    int na = p;
-    if (ARGMAX) {
-      WT sc[CB];
+  for (int64_t i0 = start; i0 < end; i0 += kThreads) {
+    const int64_t i = i0 + tid;
+    int kept = -1;  // the cluster whose statistics take instance i
+    if (i < end) {
+      const int p = prev[i];
+      const bool valid = p >= 0;
+      int na = p;
+      if (ARGMAX) {
+        WT sc[CB];
 #pragma unroll
-      for (int c = 0; c < CB; ++c) sc[c] = WT(0);
-      for (int f = 0; f < Fcp; ++f) {
-        const WT v = static_cast<WT>(phi[(int64_t)f * n + i]);
-        const WT* wf = s_w + f * CB;
+        for (int c = 0; c < CB; ++c) sc[c] = WT(0);
+        for (int f = 0; f < Fcp; ++f) {
+          const WT v = static_cast<WT>(phi[(int64_t)f * n + i]);
+          const WT* wf = s_w + f * CB;
 #pragma unroll
-        for (int c = 0; c < CB; ++c) sc[c] = fused_ma(wf[c], v, sc[c]);
-      }
-      WT best = sc[0];
-      na = 0;
+          for (int c = 0; c < CB; ++c) sc[c] = fused_ma(wf[c], v, sc[c]);
+        }
+        WT best = sc[0];
+        na = 0;
 #pragma unroll
-      for (int c = 1; c < CB; ++c) {
-        if (c < C && (sc[c] > best || (is_nan(sc[c]) && !is_nan(best)))) {
-          best = sc[c];
-          na = c;
+        for (int c = 1; c < CB; ++c) {
+          if (c < C && (sc[c] > best || (is_nan(sc[c]) && !is_nan(best)))) {
+            best = sc[c];
+            na = c;
+          }
+        }
+        if (valid) {
+          obj += best;
+          sw += (na != p);
         }
       }
-      if (valid) {
-        obj += best;
-        sw += (na != p);
+      assign[i] = valid ? na : C;
+      if (valid && na < C) {
+        atomicAdd(&s_counts[na], 1);
+        kept = na;
+        if constexpr (EXACT) {
+          for (int f = 0; f < Fcp; ++f) {
+            const PhiT v = phi[(int64_t)f * n + i];
+            if (v != PhiT(0)) atomicAdd(&s_acc[f * cs + na], static_cast<SAcc>(v));
+          }
+        }
       }
     }
-    assign[i] = valid ? na : C;
-    if (valid && na < C) {
-      atomicAdd(&s_counts[na], 1);
-      for (int f = 0; f < Fcp; ++f) {
-        const PhiT v = phi[(int64_t)f * n + i];
-        if (v != PhiT(0)) shared_add(&s_acc[f * C + na], static_cast<SAcc>(v));
-      }
+    if constexpr (!EXACT) {
+      s_na[tid] = kept;
+      __syncthreads();
+      ordered_add(s_acc, cs, s_na, kThreads, phi + i0, n, Fcp);
+      __syncthreads();
     }
   }
   __syncthreads();
@@ -170,7 +156,7 @@ __global__ void __launch_bounds__(kThreads)
 
   const int64_t b = blockIdx.x;
   for (int e = tid; e < Fcp * C; e += kThreads)
-    part_stats[b * Fcp * C + e] = s_acc[e];
+    part_stats[b * Fcp * C + e] = s_acc[(e / C) * cs + e % C];
   for (int e = tid; e < C; e += kThreads) part_counts[b * C + e] = s_counts[e];
   if (tid == 0) {
     part_sw[b] = sw_blk;

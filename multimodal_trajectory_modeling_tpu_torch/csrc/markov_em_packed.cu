@@ -1,0 +1,56 @@
+// K4a and K4b: markov_em_fused_packed and markov_em_fused_packed_multi of
+// ops/pallas_markov.py (the JAX package), launched on the kernel body of
+// markov_em_multi.cuh with each instance's Φ column built in shared memory.
+
+#include "markov_em_multi.cuh"
+
+// K4a (strict = 0, R = 1) and K4b (strict = 1).  w_kind: 1 float32,
+// 2 float64, also the type of u.  u is (steps * s, n), lens (n,), desc
+// (Fc, 3) the ACC-row table of the compact rows; the rest as for
+// mtm_markov_em_multi, with Φ's Fcp rows built per call.
+extern "C" int mtm_markov_em_packed(
+    int device, int w_kind, const void* u, const void* lens,
+    const void* desc, const void* prev, const void* force, const void* wc,
+    void* assign, void* part_stats, void* part_counts, void* part_sw,
+    void* part_obj, void* macc, void* counts, void* switches, void* obj,
+    long long n, int steps, int s, int Fc, int Fcp, int C, int R, int chunk,
+    int sub, int argmax, int strict, void* stream) {
+  if (!args_ok(n, Fcp, C, R, chunk, sub) || steps <= 0 || s <= 0 || Fc > Fcp)
+    return -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  MultiArgs a{nullptr,
+              u,
+              static_cast<const int*>(lens),
+              static_cast<const int*>(desc),
+              steps,
+              s,
+              Fc,
+              static_cast<const int*>(prev),
+              static_cast<const int*>(force),
+              wc,
+              static_cast<int*>(assign),
+              part_stats,
+              static_cast<int*>(part_counts),
+              static_cast<int*>(part_sw),
+              part_obj,
+              macc,
+              static_cast<int*>(counts),
+              static_cast<int*>(switches),
+              obj,
+              (int64_t)n,
+              Fcp,
+              C,
+              R,
+              chunk,
+              sub,
+              static_cast<cudaStream_t>(stream)};
+  const bool am = argmax != 0;
+  if (w_kind == 1)
+    return strict ? dispatch<float, float, true, true>(a, am)
+                  : dispatch<float, float, false, true>(a, am);
+  if (w_kind == 2)
+    return strict ? dispatch<double, double, true, true>(a, am)
+                  : dispatch<double, double, false, true>(a, am);
+  return -1;
+}

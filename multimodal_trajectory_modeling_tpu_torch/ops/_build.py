@@ -1,11 +1,13 @@
 """Build and load the package's CUDA kernels.
 
-At first use, ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a`` into
-one shared library with a plain C interface, in ``_build/`` beside this
-package (listed in ``.gitignore``), and loaded with ``ctypes``.  The
-library's name carries a hash of the sources and flags, so an edit to a
-source triggers a rebuild and a stale library is never loaded.  Nothing
-here runs at import time.
+At first use, ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a``, one
+``nvcc`` per source, all started together, and linked into one shared
+library with a plain C interface, in ``_build/`` beside this package
+(listed in ``.gitignore``), and loaded with ``ctypes``.  The
+library's name carries a hash of the sources, the headers they share
+(``csrc/*.cuh``) and the flags, so an edit to any of them triggers a
+rebuild and a stale library is never loaded.  Nothing here runs at
+import time.
 """
 
 from __future__ import annotations
@@ -23,7 +25,7 @@ _SRC_DIR = _PKG / "csrc"
 _BUILD_DIR = _PKG / "_build"
 _FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -38,6 +40,14 @@ _SIGNATURES = {
         _LL, _I, _I, _I, _I, _P,
     ],
     "mtm_markov_em_max_clusters": [],
+    "mtm_markov_em_multi": [
+        _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _LL, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_markov_em_packed": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
 }
 
 
@@ -59,7 +69,7 @@ def sources() -> list[Path]:
 
 def library_path() -> Path:
     h = hashlib.sha256(" ".join(_FLAGS).encode())
-    for src in sources():
+    for src in sources() + sorted(_SRC_DIR.glob("*.cuh")):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return _BUILD_DIR / f"libmtm_kernels_{h.hexdigest()[:16]}.so"
@@ -68,17 +78,36 @@ def library_path() -> Path:
 def _compile(out: Path) -> None:
     nvcc = _nvcc()
     _BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_suffix(f".{os.getpid()}.tmp")
-    cmd = [nvcc, *_FLAGS, "-o", str(tmp), *map(str, sources())]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    out.with_suffix(".log").write_text(
-        " ".join(cmd) + "\n" + proc.stdout + proc.stderr
-    )
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed (exit {proc.returncode}):\n{proc.stderr[-4000:]}"
+    tag = f"{os.getpid()}.tmp"
+    jobs = []
+    for src in sources():
+        obj = out.with_name(f"{out.stem}.{src.stem}.{tag}.o")
+        cmd = [nvcc, *_FLAGS, "-c", str(src), "-o", str(obj)]
+        proc = subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True
         )
-    os.replace(tmp, out)
+        jobs.append((cmd, obj, proc))
+    log, failed = [], []
+    for cmd, _obj, proc in jobs:
+        stdout, stderr = proc.communicate()
+        log.append(" ".join(cmd) + "\n" + stdout + stderr)
+        if proc.returncode != 0:
+            failed.append(f"{cmd[-3]} (exit {proc.returncode}):\n{stderr[-4000:]}")
+    objs = [obj for _cmd, obj, _proc in jobs]
+    if not failed:
+        tmp = out.with_suffix(f".{tag}")
+        cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
+        proc = subprocess.run(cmd, capture_output=True, text=True)
+        log.append(" ".join(cmd) + "\n" + proc.stdout + proc.stderr)
+        if proc.returncode != 0:
+            failed.append(f"link (exit {proc.returncode}):\n{proc.stderr[-4000:]}")
+        else:
+            os.replace(tmp, out)
+    for obj in objs:
+        obj.unlink(missing_ok=True)
+    out.with_suffix(".log").write_text("\n".join(log))
+    if failed:
+        raise RuntimeError("nvcc failed: " + "\n".join(failed))
 
 
 @functools.cache

@@ -1,10 +1,19 @@
-"""Markov EM kernels: Φ materialization (K2) and the Φ-reading EM
-iteration (K1).
+"""Markov EM kernels: Φ materialization (K2), the Φ-reading EM iteration
+for one restart (K1) and for R restarts (K3), and the EM iteration that
+rebuilds Φ from the packed batch on every call, for one restart (K4a) and
+for R restarts (K4b).
 
 Counterpart of ``multimodal_trajectory_modeling_tpu/ops/pallas_markov.py``,
-whose Pallas TPU kernels ``markov_materialize_features`` (:1314) and
-``markov_em_from_features`` (:1464) become the hand-written CUDA kernels in
-``csrc/markov_features.cu`` and ``csrc/markov_em.cu``.
+whose Pallas TPU kernels become hand-written CUDA kernels:
+
+- K2 ``markov_materialize_features`` (:1314) → ``csrc/markov_features.cu``;
+- K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em.cu``;
+- K3 ``markov_em_from_features_multi`` (:1658), K4a
+  ``markov_em_fused_packed`` (:727) and K4b
+  ``markov_em_fused_packed_multi`` (:898) → ``csrc/markov_em_multi.cu``,
+  one kernel body that reads Φ from device memory (K3) or builds each
+  instance's Φ column in shared memory with K2's row build
+  (``csrc/markov_common.cuh``, K4a/K4b).
 
 - Layout (``markov_packed_spec``, ``pack_markov_u``,
   ``markov_compact_spec``): the batch is packed per time step as
@@ -16,7 +25,12 @@ whose Pallas TPU kernels ``markov_materialize_features`` (:1314) and
   edge.
 - Storage (``PhiQuant``, ``quantize_phi``): Φ may be stored int16 with one
   scale per row; the scales fold into the score weights and unfold from
-  the statistics, so K1 reads half the bytes.
+  the statistics, so K1 and K3 read half the bytes.
+- Argmax rules follow the replaced kernels: K1 and K4a take the first
+  maximum with NaN counted as the maximum (``jnp.argmax``); K3 and K4b a
+  strict ``>`` scan over the clusters, so a NaN never wins (and a NaN at
+  cluster 0 stays).  A degenerate cluster has NaN weights, so the two
+  rules give different assignments there.
 - Kernels: each wrapper takes its plain torch version for CPU tensors
   only.  For CUDA tensors it launches the kernel or raises.  Each wrapper
   counts its launches in ``.launches``.
@@ -39,7 +53,15 @@ __all__ = [
     "markov_compact_spec",
     "markov_em_compact",
     "markov_em_compact_plain",
+    "fold_weights_multi",
+    "markov_em_compact_multi",
+    "markov_em_compact_multi_plain",
     "markov_em_from_features",
+    "markov_em_from_features_multi",
+    "markov_em_fused_packed",
+    "markov_em_fused_packed_multi",
+    "markov_em_fused_packed_multi_plain",
+    "markov_em_fused_packed_plain",
     "markov_materialize_features",
     "markov_materialize_features_plain",
     "markov_packed_spec",
@@ -49,8 +71,17 @@ __all__ = [
 ]
 
 # Instances per block of K1; int16 statistics are summed in int32 inside
-# a block, which holds for up to 65536 instances.
+# a block, which holds for up to 65536 instances.  K3/K4 take their
+# objective partials per _EM_CHUNK instances too (so that K3's objective
+# is K1's bit for bit), and their statistics per _multi_chunk(R).
 _EM_CHUNK = 1024
+
+
+def _multi_chunk(R: int) -> int:
+    """K3/K4's instances per block: 1024 per four restarts, at most 8192,
+    so the grid keeps about n/1024 blocks of restart groups while the
+    per-block partials (R statistics each) stay small."""
+    return _EM_CHUNK * min(8, -(-R // 4))
 
 # ----------------------------------------------------------------------
 # layout
@@ -143,6 +174,12 @@ def _positions(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
     """``pos`` of :func:`markov_compact_spec` as a tensor on ``device``
     (read by every EM iteration; copied to the device once)."""
     return torch.as_tensor(_feature_layout(T, d, l, "compact")[1], device=device)
+
+
+@functools.lru_cache(maxsize=None)
+def _acc_rows(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
+    """``rows`` of :func:`markov_packed_spec` as a tensor on ``device``."""
+    return torch.as_tensor(markov_packed_spec(T, d, l)[3], device=device)
 
 
 def pack_markov_u(
@@ -246,6 +283,14 @@ def _acc_row_table(d: int, l: int) -> np.ndarray:
     return table
 
 
+@functools.lru_cache(maxsize=None)
+def _row_desc(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
+    """The (Fc, 3) int32 ACC-row table of Φ's referenced rows on
+    ``device``, read by K2, K4a and K4b (copied to the device once)."""
+    uniq = markov_compact_spec(T, d, l)[1]
+    return torch.as_tensor(_acc_row_table(d, l)[uniq], device=device)
+
+
 def _packed_acc_build(u, lens, *, T: int, d: int, s: int, ks: tuple):
     """The (Facc, n) accumulator of :func:`markov_packed_spec` from the
     packed batch, with the JAX kernel's algebra (``pallas_markov.py:606``):
@@ -334,7 +379,7 @@ def markov_materialize_features(
     if n == 0:
         raise ValueError("empty batch")
     Fc_pad, uniq, _pos = markov_compact_spec(T, d, l)
-    desc = torch.as_tensor(_acc_row_table(d, l)[uniq], device=u.device)
+    desc = _row_desc(T, d, l, u.device)
     phi = torch.empty((Fc_pad, n), dtype=u.dtype, device=u.device)
     rc = _build.library().mtm_markov_features(
         _device_index(u),
@@ -362,6 +407,79 @@ markov_materialize_features.launches = 0
 # ----------------------------------------------------------------------
 
 
+def _argmax_first(scores: torch.Tensor):
+    """``(max, argmax)`` over axis 0 with ``jnp.argmax``/``jnp.max``
+    semantics: the first maximum, and where a column holds a NaN, its
+    first NaN and the value NaN (K1, K4a)."""
+    best, na = scores.max(dim=0)
+    nan = scores.isnan()
+    anynan = nan.any(dim=0)
+    na = torch.where(anynan, nan.to(torch.uint8).argmax(dim=0), na)
+    best = torch.where(anynan, torch.nan, best)
+    return best, na.to(torch.int32)
+
+
+def _argmax_strict(scores: torch.Tensor):
+    """``(max, argmax)`` over axis 0 by a strict ``>`` scan from row 0, as
+    the multi-restart kernels take it (K3, K4b): a NaN never replaces the
+    running best, and a NaN in row 0 stays."""
+    best = scores[0]
+    na = torch.zeros(scores.shape[1], dtype=torch.int32, device=scores.device)
+    for c in range(1, scores.shape[0]):
+        upd = scores[c] > best
+        na = torch.where(upd, c, na)
+        best = torch.where(upd, scores[c], best)
+    return best, na
+
+
+def _em_plain(phi, phi_w, prev, wc, *, assign_mode, strict, forced=False):
+    """One restart's EM outputs from a dense score matrix and one-hot
+    statistics.  ``phi_w`` is Φ in the weights' dtype; ``phi`` gives the
+    statistics' type: exact integer sums (float64, then int64) for int16
+    Φ.  A ``forced`` slot takes ``prev`` with switches and objective 0."""
+    C = wc.shape[0]
+    dtype = wc.dtype
+    valid = prev >= 0
+    if assign_mode == "prev" or forced:
+        na = prev
+        switches = torch.zeros((), dtype=torch.int32, device=phi.device)
+        obj = torch.zeros((), dtype=dtype, device=phi.device)
+    else:
+        scores = wc @ phi_w  # (C, n)
+        best, na = (_argmax_strict if strict else _argmax_first)(scores)
+        switches = ((na != prev) & valid).sum().to(torch.int32)
+        obj = torch.where(valid, best, 0.0).sum()
+    clusters = torch.arange(C, dtype=na.dtype, device=na.device)
+    onehot = (na[None, :] == clusters[:, None]) & valid[None, :]  # (C, n)
+    counts = onehot.sum(dim=1).to(torch.int32)
+    if phi.dtype == torch.int16:
+        macc = (phi_w.to(torch.float64) @ onehot.T.to(torch.float64)).to(
+            torch.int64
+        )
+    else:
+        macc = phi_w @ onehot.T.to(dtype)
+    assign = torch.where(valid, na, C).to(torch.int32)
+    return assign, counts, switches, macc, obj
+
+
+def _check_mode(assign_mode):
+    if assign_mode not in ("argmax", "prev"):
+        raise ValueError(f"unknown assign_mode {assign_mode!r}")
+
+
+# dtype codes of the EM kernels' C interface (Φ, weights)
+_PHI_KINDS = {torch.int16: 0, torch.float32: 1, torch.float64: 2}
+_W_KINDS = {torch.float32: 1, torch.float64: 2}
+
+
+def _check_clusters(lib, C: int):
+    if C > lib.mtm_markov_em_max_clusters():
+        raise ValueError(
+            f"{C} clusters: the kernel takes at most "
+            f"{lib.mtm_markov_em_max_clusters()}"
+        )
+
+
 def markov_em_compact_plain(
     phi: torch.Tensor,
     prev: torch.Tensor,
@@ -372,32 +490,10 @@ def markov_em_compact_plain(
     """Plain torch version of :func:`markov_em_compact`: the same outputs
     from a dense score matrix and one-hot statistics.  Under int16 Φ the
     statistics are summed exactly (integer sums in float64, then int64)."""
-    if assign_mode not in ("argmax", "prev"):
-        raise ValueError(f"unknown assign_mode {assign_mode!r}")
-    C = wc.shape[0]
-    dtype = wc.dtype
-    valid = prev >= 0
-    if assign_mode == "prev":
-        na = prev
-        switches = torch.zeros((), dtype=torch.int32, device=phi.device)
-        obj = torch.zeros((), dtype=dtype, device=phi.device)
-    else:
-        scores = wc @ phi.to(dtype)  # (C, n)
-        best, na = scores.max(dim=0)  # first maximum
-        na = na.to(torch.int32)
-        switches = ((na != prev) & valid).sum().to(torch.int32)
-        obj = torch.where(valid, best, 0.0).sum()
-    clusters = torch.arange(C, dtype=na.dtype, device=na.device)
-    onehot = (na[None, :] == clusters[:, None]) & valid[None, :]  # (C, n)
-    counts = onehot.sum(dim=1).to(torch.int32)
-    if phi.dtype == torch.int16:
-        macc = (phi.to(torch.float64) @ onehot.T.to(torch.float64)).to(
-            torch.int64
-        )
-    else:
-        macc = phi.to(dtype) @ onehot.T.to(dtype)
-    assign = torch.where(valid, na, C).to(torch.int32)
-    return assign, counts, switches, macc, obj
+    _check_mode(assign_mode)
+    return _em_plain(
+        phi, phi.to(wc.dtype), prev, wc, assign_mode=assign_mode, strict=False
+    )
 
 
 def markov_em_compact(
@@ -425,15 +521,12 @@ def markov_em_compact(
         raise ValueError(f"wc must be (C, {phi.shape[0]}), got {tuple(wc.shape)}")
     if not (phi.device == prev.device == wc.device):
         raise ValueError("phi, prev and wc must be on one device")
-    if assign_mode not in ("argmax", "prev"):
-        raise ValueError(f"unknown assign_mode {assign_mode!r}")
+    _check_mode(assign_mode)
     if phi.device.type == "cpu":
         return markov_em_compact_plain(phi, prev, wc, assign_mode=assign_mode)
     if phi.device.type != "cuda":
         raise ValueError(f"unsupported device {phi.device}")
-    phi_kinds = {torch.int16: 0, torch.float32: 1, torch.float64: 2}
-    w_kinds = {torch.float32: 1, torch.float64: 2}
-    if phi.dtype not in phi_kinds or wc.dtype not in w_kinds:
+    if phi.dtype not in _PHI_KINDS or wc.dtype not in _W_KINDS:
         raise ValueError(f"unsupported dtypes phi {phi.dtype}, wc {wc.dtype}")
     if phi.dtype != torch.int16 and phi.dtype != wc.dtype:
         raise ValueError("a wide Φ must have the weights' dtype")
@@ -446,13 +539,9 @@ def markov_em_compact(
     if n == 0:
         raise ValueError("empty batch")
     lib = _build.library()
-    if C > lib.mtm_markov_em_max_clusters():
-        raise ValueError(
-            f"{C} clusters: the kernel takes at most "
-            f"{lib.mtm_markov_em_max_clusters()}"
-        )
+    _check_clusters(lib, C)
     argmax = assign_mode == "argmax"
-    pk, wk = phi_kinds[phi.dtype], w_kinds[wc.dtype]
+    pk, wk = _PHI_KINDS[phi.dtype], _W_KINDS[wc.dtype]
     quant = phi.dtype == torch.int16
     part_dtype = torch.int32 if quant else wc.dtype
     macc_dtype = torch.int64 if quant else wc.dtype
@@ -539,3 +628,382 @@ def markov_em_from_features(
     if scale is not None:
         g = g * scale[pos][:, None].to(g.dtype)
     return assign, counts, switches, g, obj
+
+
+# ----------------------------------------------------------------------
+# K3: one EM iteration over Φ for R restarts
+# ----------------------------------------------------------------------
+
+def _force_vector(force, R: int, device) -> torch.Tensor:
+    """``force_prev`` as a contiguous (R,) int32 tensor (zeros for None)."""
+    if force is None:
+        return torch.zeros((R,), dtype=torch.int32, device=device)
+    force = torch.as_tensor(force, device=device)
+    if force.shape != (R,):
+        raise ValueError(f"force_prev must be ({R},), got {tuple(force.shape)}")
+    return force.to(torch.int32).contiguous()
+
+
+def _check_multi_args(n: int, prev, wc, device):
+    if prev.ndim != 2 or prev.shape[1] != n:
+        raise ValueError(f"prev must be (R, {n}), got {tuple(prev.shape)}")
+    if wc.ndim != 3 or wc.shape[0] != prev.shape[0]:
+        raise ValueError(
+            f"wc must be (R={prev.shape[0]}, C, Fc_pad), got {tuple(wc.shape)}"
+        )
+    if not (prev.device == wc.device == device):
+        raise ValueError("Φ (or u), prev and wc must be on one device")
+
+
+def _multi_buffers(R, n, Fcp, C, *, quant, wdtype, device):
+    """Outputs ``(assign, counts, switches, macc, obj)`` and partials of
+    the R-restart kernels: per block of :func:`_multi_chunk` instances,
+    the objective's per ``_EM_CHUNK``."""
+    nblocks = -(-n // _multi_chunk(R))
+    empty = functools.partial(torch.empty, device=device)
+    parts = (
+        empty((nblocks, R, Fcp, C), dtype=torch.int32 if quant else wdtype),
+        empty((nblocks, R, C), dtype=torch.int32),
+        empty((nblocks, R), dtype=torch.int32),
+        empty((-(-n // _EM_CHUNK), R), dtype=wdtype),
+    )
+    outs = (
+        empty((R, n), dtype=torch.int32),
+        empty((R, C), dtype=torch.int32),
+        empty((R,), dtype=torch.int32),
+        empty((R, Fcp, C), dtype=torch.int64 if quant else wdtype),
+        empty((R,), dtype=wdtype),
+    )
+    return parts, outs
+
+
+def markov_em_compact_multi_plain(
+    phi: torch.Tensor,
+    prev: torch.Tensor,
+    wc: torch.Tensor,
+    force=None,
+    *,
+    assign_mode: str = "argmax",
+):
+    """Plain torch version of :func:`markov_em_compact_multi`: restart by
+    restart, the plain math of K1 with the strict argmax and the
+    ``force`` slots taking ``prev``."""
+    _check_mode(assign_mode)
+    R = wc.shape[0]
+    force = _force_vector(force, R, phi.device).cpu().tolist()
+    phi_w = phi.to(wc.dtype)
+    outs = [
+        _em_plain(
+            phi, phi_w, prev[r], wc[r], assign_mode=assign_mode, strict=True,
+            forced=assign_mode == "argmax" and force[r] != 0,
+        )
+        for r in range(R)
+    ]
+    return tuple(torch.stack(parts) for parts in zip(*outs))
+
+
+def markov_em_compact_multi(
+    phi: torch.Tensor,  # (Fc_pad, n) int16 payload, or wide float
+    prev: torch.Tensor,  # (R, n) int32; < 0 marks rows to leave out
+    wc: torch.Tensor,  # (R, C, Fc_pad) folded weights (fold_weights_multi)
+    force=None,  # (R,) int/bool; 1 ⇒ the slot takes prev (argmax mode)
+    *,
+    assign_mode: str = "argmax",
+):
+    """K3: K1 for R restarts from one Φ.
+
+    Returns ``(assign (R, n) int32, counts (R, C) int32, switches (R,)
+    int32, macc (R, Fc_pad, C), obj (R,))``, each restart as K1 gives it
+    (bit for bit, objective included, where its scores are finite) but
+    with the strict argmax (a NaN score never wins); a ``force`` slot
+    takes ``prev`` with switches and objective exactly 0.  CUDA tensors
+    launch ``csrc/markov_em_multi.cu``; CPU tensors take the plain
+    version."""
+    if phi.ndim != 2:
+        raise ValueError(f"phi must be (Fc_pad, n), got {tuple(phi.shape)}")
+    _check_multi_args(phi.shape[1], prev, wc, phi.device)
+    if wc.shape[2] != phi.shape[0]:
+        raise ValueError(f"wc must be (R, C, {phi.shape[0]}), got {tuple(wc.shape)}")
+    _check_mode(assign_mode)
+    if phi.device.type == "cpu":
+        return markov_em_compact_multi_plain(
+            phi, prev, wc, force, assign_mode=assign_mode
+        )
+    if phi.device.type != "cuda":
+        raise ValueError(f"unsupported device {phi.device}")
+    if phi.dtype not in _PHI_KINDS or wc.dtype not in _W_KINDS:
+        raise ValueError(f"unsupported dtypes phi {phi.dtype}, wc {wc.dtype}")
+    if phi.dtype != torch.int16 and phi.dtype != wc.dtype:
+        raise ValueError("a wide Φ must have the weights' dtype")
+    if prev.dtype != torch.int32:
+        raise ValueError(f"prev must be int32, got {prev.dtype}")
+    if not (phi.is_contiguous() and prev.is_contiguous() and wc.is_contiguous()):
+        raise ValueError("phi, prev and wc must be contiguous")
+    (Fcp, n), (R, C, _F) = phi.shape, wc.shape
+    if n == 0:
+        raise ValueError("empty batch")
+    lib = _build.library()
+    _check_clusters(lib, C)
+    force = _force_vector(force, R, phi.device)
+    quant = phi.dtype == torch.int16
+    parts, outs = _multi_buffers(
+        R, n, Fcp, C, quant=quant, wdtype=wc.dtype, device=phi.device
+    )
+    rc = lib.mtm_markov_em_multi(
+        _device_index(phi),
+        _PHI_KINDS[phi.dtype],
+        _W_KINDS[wc.dtype],
+        phi.data_ptr(),
+        prev.data_ptr(),
+        force.data_ptr(),
+        wc.data_ptr(),
+        outs[0].data_ptr(),
+        *(p.data_ptr() for p in parts),
+        *(o.data_ptr() for o in outs[3:4] + outs[1:3] + outs[4:]),
+        n,
+        Fcp,
+        C,
+        R,
+        _multi_chunk(R),
+        _EM_CHUNK,
+        int(assign_mode == "argmax"),
+        torch.cuda.current_stream(phi.device).cuda_stream,
+    )
+    _build.check(rc, "markov_em_compact_multi")
+    markov_em_compact_multi.launches += 1
+    return outs
+
+
+markov_em_compact_multi.launches = 0
+
+
+def fold_weights_multi(
+    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None
+) -> torch.Tensor:
+    """K3's weights ``wc (R, C, Fc_pad)`` from ``Wg (R, C, F)``: restart r
+    folds exactly as :func:`fold_weights` folds ``Wg[r]`` (at most two
+    features share a Φ row, so the sum is the same in any order)."""
+    R, C, F = Wg.shape
+    return fold_weights(
+        Wg.reshape(R * C, F), T=T, d=d, l=l, scale=scale
+    ).reshape(R, C, -1)
+
+
+def markov_em_from_features_multi(
+    phi,  # (Fc_pad, n) tensor or PhiQuant, from markov_materialize_features
+    lens: torch.Tensor,  # (n,) int32 — the batch size carrier
+    prev_assign: torch.Tensor,  # (R, n) int32
+    Wg: torch.Tensor,  # (R, C, F) g-layout weights (+ log π folded)
+    *,
+    T: int,
+    d: int,
+    l: int,
+    assign_mode: str = "argmax",
+    force_prev=None,  # (R,) int/bool; 1 ⇒ the slot takes prev
+):
+    """R-restart EM iteration over Φ with the contract of
+    ``pallas_markov.py:1658``: ``(assign (R, n), counts (R, C), switches
+    (R,), g (R, F, C), obj (R,))``.  Folds ``Wg`` (and the int16 scales),
+    runs K3 (:func:`markov_em_compact_multi`) and unfolds its statistics
+    as :func:`markov_em_from_features` does, restart by restart."""
+    scale = None
+    if isinstance(phi, PhiQuant):
+        phi, scale = phi.q, phi.scale
+    if lens.shape != (phi.shape[1],):
+        raise ValueError(f"lens must be ({phi.shape[1]},), got {tuple(lens.shape)}")
+    pos = _positions(T, d, l, Wg.device)
+    wc = fold_weights_multi(Wg, T=T, d=d, l=l, scale=scale)
+    assign, counts, switches, macc, obj = markov_em_compact_multi(
+        phi, prev_assign, wc, force_prev, assign_mode=assign_mode
+    )
+    g = macc[:, pos].to(Wg.dtype)
+    if scale is not None:
+        g = g * scale[pos][None, :, None].to(g.dtype)
+    return assign, counts, switches, g, obj
+
+
+# ----------------------------------------------------------------------
+# K4a/K4b: EM iterations that rebuild Φ from the packed batch
+# ----------------------------------------------------------------------
+
+
+def _packed_acc(u, lens, dtype, *, T: int, d: int, l: int):
+    """The (Facc, n) ACC of the packed batch in ``dtype`` (the weights'),
+    and its g-layout rows."""
+    s, ks, _Facc, _rows = markov_packed_spec(T, d, l)
+    acc = _packed_acc_build(u.to(dtype), lens, T=T, d=d, s=s, ks=ks)
+    return acc, _acc_rows(T, d, l, u.device)
+
+
+def _fold_acc(Wg: torch.Tensor, rows: torch.Tensor, Facc: int) -> torch.Tensor:
+    """``Wg (…, F)`` folded onto the ACC rows: ``(…, Facc)``."""
+    flat = Wg.reshape(-1, Wg.shape[-1])
+    wacc = torch.zeros((flat.shape[0], Facc), dtype=Wg.dtype, device=Wg.device)
+    wacc.index_add_(1, rows, flat)
+    return wacc.reshape(*Wg.shape[:-1], Facc)
+
+
+def markov_em_fused_packed_plain(
+    u, lens, prev_assign, Wg, *, T: int, d: int, l: int,
+    assign_mode: str = "argmax",
+):
+    """Plain torch version of :func:`markov_em_fused_packed`: the ACC
+    rows of ``_packed_acc_build`` (the JAX kernel's algebra), then K1's
+    plain math over them."""
+    _check_features_args(u, lens, T, d, l)
+    _check_mode(assign_mode)
+    acc, rows = _packed_acc(u, lens, Wg.dtype, T=T, d=d, l=l)
+    wacc = _fold_acc(Wg, rows, acc.shape[0])
+    assign, counts, switches, macc, obj = _em_plain(
+        acc, acc, prev_assign, wacc, assign_mode=assign_mode, strict=False
+    )
+    return assign, counts, switches, macc[rows], obj
+
+
+def markov_em_fused_packed_multi_plain(
+    u, lens, prev_assign, Wg, *, T: int, d: int, l: int,
+    assign_mode: str = "argmax", force_prev=None,
+):
+    """Plain torch version of :func:`markov_em_fused_packed_multi`: the
+    ACC rows, then K3's plain math over them."""
+    _check_features_args(u, lens, T, d, l)
+    acc, rows = _packed_acc(u, lens, Wg.dtype, T=T, d=d, l=l)
+    wacc = _fold_acc(Wg, rows, acc.shape[0])
+    assign, counts, switches, macc, obj = markov_em_compact_multi_plain(
+        acc, prev_assign, wacc, force_prev,
+        assign_mode=assign_mode,
+    )
+    return assign, counts, switches, macc[:, rows], obj
+
+
+def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
+    """Launch ``mtm_markov_em_packed`` (K4a with ``strict=False`` and
+    R = 1, K4b with ``strict=True``); returns the R-restart outputs."""
+    if u.dtype not in _W_KINDS or wc.dtype != u.dtype:
+        raise ValueError(
+            f"u and the weights must share float32 or float64, got {u.dtype}, "
+            f"{wc.dtype}"
+        )
+    if lens.dtype != torch.int32 or prev.dtype != torch.int32:
+        raise ValueError("lens and prev must be int32")
+    if not (u.is_contiguous() and lens.is_contiguous() and prev.is_contiguous()):
+        raise ValueError("u, lens and prev must be contiguous")
+    n = u.shape[1]
+    if n == 0:
+        raise ValueError("empty batch")
+    R, C, Fcp = wc.shape
+    lib = _build.library()
+    _check_clusters(lib, C)
+    Fc = int(markov_compact_spec(T, d, l)[1].shape[0])
+    desc = _row_desc(T, d, l, u.device)
+    parts, outs = _multi_buffers(
+        R, n, Fcp, C, quant=False, wdtype=wc.dtype, device=u.device
+    )
+    rc = lib.mtm_markov_em_packed(
+        _device_index(u),
+        _W_KINDS[u.dtype],
+        u.data_ptr(),
+        lens.data_ptr(),
+        desc.data_ptr(),
+        prev.data_ptr(),
+        force.data_ptr(),
+        wc.data_ptr(),
+        outs[0].data_ptr(),
+        *(p.data_ptr() for p in parts),
+        *(o.data_ptr() for o in outs[3:4] + outs[1:3] + outs[4:]),
+        n,
+        T,
+        u.shape[0] // T,
+        Fc,
+        Fcp,
+        C,
+        R,
+        _multi_chunk(R),
+        _EM_CHUNK,
+        int(argmax),
+        int(strict),
+        torch.cuda.current_stream(u.device).cuda_stream,
+    )
+    _build.check(rc, "markov_em_fused_packed" + ("_multi" if strict else ""))
+    return outs
+
+
+def markov_em_fused_packed(
+    u: torch.Tensor,  # (T·s, n) from pack_markov_u
+    lens: torch.Tensor,  # (n,) int32
+    prev_assign: torch.Tensor,  # (n,) int32
+    Wg: torch.Tensor,  # (C, F) g-layout weights (+ log π folded)
+    *,
+    T: int,
+    d: int,
+    l: int,
+    assign_mode: str = "argmax",
+):
+    """K4a: one EM iteration that rebuilds Φ from the packed batch, with
+    the contract of ``pallas_markov.py:727``: ``(assign (n,), counts (C,),
+    switches (), g (F, C), obj ())``; the first-maximum argmax of K1.
+    CUDA tensors launch ``csrc/markov_em_multi.cu`` at R = 1; CPU tensors
+    take the plain version."""
+    _check_features_args(u, lens, T, d, l)
+    _check_mode(assign_mode)
+    if prev_assign.shape != lens.shape:
+        raise ValueError(f"prev_assign must be {tuple(lens.shape)}")
+    if u.device.type == "cpu":
+        return markov_em_fused_packed_plain(
+            u, lens, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode
+        )
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    wc = fold_weights(Wg, T=T, d=d, l=l)[None]
+    force = torch.zeros((1,), dtype=torch.int32, device=u.device)
+    assign, counts, switches, macc, obj = _launch_packed(
+        u, lens, prev_assign[None], wc, force, T=T, d=d, l=l,
+        argmax=assign_mode == "argmax", strict=False,
+    )
+    markov_em_fused_packed.launches += 1
+    g = macc[0][_positions(T, d, l, u.device)]
+    return assign[0], counts[0], switches[0], g, obj[0]
+
+
+markov_em_fused_packed.launches = 0
+
+
+def markov_em_fused_packed_multi(
+    u: torch.Tensor,  # (T·s, n) from pack_markov_u — shared by the restarts
+    lens: torch.Tensor,  # (n,) int32
+    prev_assign: torch.Tensor,  # (R, n) int32
+    Wg: torch.Tensor,  # (R, C, F) g-layout weights (+ log π folded)
+    *,
+    T: int,
+    d: int,
+    l: int,
+    assign_mode: str = "argmax",
+    force_prev=None,  # (R,) int/bool; 1 ⇒ the slot takes prev
+):
+    """K4b: R-restart EM iteration that rebuilds Φ from the packed batch,
+    with the contract of ``pallas_markov.py:898``: ``(assign (R, n),
+    counts (R, C), switches (R,), g (R, F, C), obj (R,))``; the strict
+    argmax and ``force_prev`` of K3.  CUDA tensors launch
+    ``csrc/markov_em_multi.cu``; CPU tensors take the plain version."""
+    _check_features_args(u, lens, T, d, l)
+    _check_multi_args(u.shape[1], prev_assign, Wg, u.device)
+    _check_mode(assign_mode)
+    if u.device.type == "cpu":
+        return markov_em_fused_packed_multi_plain(
+            u, lens, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode,
+            force_prev=force_prev,
+        )
+    if u.device.type != "cuda":
+        raise ValueError(f"unsupported device {u.device}")
+    wc = fold_weights_multi(Wg, T=T, d=d, l=l)
+    force = _force_vector(force_prev, Wg.shape[0], u.device)
+    assign, counts, switches, macc, obj = _launch_packed(
+        u, lens, prev_assign, wc, force, T=T, d=d, l=l,
+        argmax=assign_mode == "argmax", strict=True,
+    )
+    markov_em_fused_packed_multi.launches += 1
+    g = macc[:, _positions(T, d, l, u.device)]
+    return assign, counts, switches, g, obj
+
+
+markov_em_fused_packed_multi.launches = 0

@@ -1,6 +1,8 @@
 """The port's Markov EM trainer against the JAX package's
 ``em.train_em_markov`` on NaN-suffix synthetic data, float64 on the CPU:
-identical assignments, iteration count and status, parameters to 1e-10."""
+identical assignments, iteration count and status, parameters to 1e-10 —
+with Φ materialized once (K2 + K1) and rebuilt in every iteration
+(``precompute=False``, K4a)."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -86,6 +88,31 @@ def test_train_em_markov_matches_jax(seed, reg_mode):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-10, atol=1e-10)
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+def test_train_em_markov_precompute_off_matches_jax(seed):
+    """``precompute=False``: every iteration rebuilds Φ from the packed
+    batch (K4a in the port, ``markov_em_fused_packed`` in JAX)."""
+    z, x, lens, labels = _two_cluster_data(seed)
+    rng = np.random.default_rng(200 + seed)
+    assign0 = np.where(rng.uniform(size=labels.size) < 0.3, 1 - labels, labels)
+    params0 = _init_params(seed, 2, z.shape[2], x.shape[2])
+    (pj, aj, ij, sj), (pt, at, it, st) = _fit_both(
+        params0, assign0, z, x, lens, n_steps=50, precompute=False
+    )
+    assert (it, st) == (ij, sj)
+    assert st == tem.STATUS_CONVERGED and it > 1
+    np.testing.assert_array_equal(at, aj)
+    for a, b in zip(tem.mixture_params_to_numpy(pt), pj):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-10, atol=1e-10)
+    # the same trajectory as with Φ materialized once
+    pp, ap, ip, sp = tem.train_em_markov(
+        tem.mixture_params_from_numpy(params0), torch.from_numpy(assign0.astype(np.int32)),
+        torch.from_numpy(z), torch.from_numpy(x), torch.from_numpy(lens), n_steps=50,
+    )
+    assert (ip, sp) == (it, st)
+    np.testing.assert_array_equal(ap.numpy(), at)
+
+
 def test_train_em_markov_step_budget_matches_jax():
     """A fit cut by ``n_steps`` stops at the same iteration with status
     RUNNING in both packages."""
@@ -126,8 +153,8 @@ def test_unported_branches_raise(monkeypatch):
         torch.from_numpy(x),
         torch.from_numpy(lens),
     )
-    with pytest.raises(NotImplementedError, match="K4"):
-        tem.train_em_markov(*args, precompute=False)
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tem.train_em_markov_pool([args[0]], [labels], *args[2:], mesh=object())
     monkeypatch.setenv("MTM_MARKOV_PHI", "bf16")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tem.train_em_markov(*args)

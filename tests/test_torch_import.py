@@ -1,5 +1,5 @@
-"""The port imports torch and never jax, and refuses a CUDA device it
-does not have."""
+"""The port imports torch and never jax or scikit-learn (its k-means init
+included), and refuses a CUDA device it does not have."""
 
 import os
 import subprocess
@@ -23,9 +23,15 @@ def test_port_never_imports_jax():
         "import sys\n"
         "import multimodal_trajectory_modeling_tpu_torch\n"
         "import multimodal_trajectory_modeling_tpu_torch.models.em\n"
+        "import multimodal_trajectory_modeling_tpu_torch.models.kmeans\n"
         "import multimodal_trajectory_modeling_tpu_torch.models.mixture\n"
         "import multimodal_trajectory_modeling_tpu_torch.ops.markov_kernels\n"
         "import multimodal_trajectory_modeling_tpu_torch.ops.regression\n"
+        "import numpy as np\n"
+        "from multimodal_trajectory_modeling_tpu_torch.models import "
+        "MMLinGaussSS_marginalizable as M\n"
+        "z = np.random.default_rng(0).normal(size=(3, 50, 2))\n"
+        "M(2, z, z, init='kmeans')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'multimodal_trajectory_modeling_tpu.', 'sklearn')) or m == "
         "'multimodal_trajectory_modeling_tpu')\n"

@@ -6,6 +6,10 @@ same seeded numpy inputs.
 - K1 (EM iteration over Φ), in both assign modes, for wide and int16 Φ:
   assignments, counts and switches identical; statistics and objective
   to 1e-10 relative.
+- K3 (K1 for R restarts), K4a and K4b (the EM iteration rebuilding Φ from
+  the packed batch, one and R restarts), in both assign modes, with a
+  mixed ``force_prev`` mask and with a cluster of NaN weights (the two
+  argmax rules): the same tolerances; NaN objectives agree as NaN.
 """
 
 import functools
@@ -186,3 +190,115 @@ def test_int16_statistics_are_exact_integers():
     np.testing.assert_array_equal(
         counts.numpy(), np.bincount(prev.numpy(), minlength=4)
     )
+
+
+MULTI = (6, 2, 3, 300, 4)  # (T, d, l, n, R), tests/test_markov_multi.py
+FORCE = np.array([0, 1, 0, 1], np.int32)
+
+
+def _multi_problem(nan_cluster, seed=11):
+    """Stacked weights (R, C, F) for both packages, a prev (R, n) with
+    rows left out, and the packed batch of both packages."""
+    T, d, l, n, R = MULTI
+    z, x, lens = _batch(T, d, l, n, seed=12)
+    Wg = np.stack([np.asarray(_weights(d, l, seed + r)[0]) for r in range(R)])
+    if nan_cluster is not None:
+        Wg[:, nan_cluster] = np.nan  # a degenerate cluster
+    rng = np.random.default_rng(seed)
+    prev = rng.integers(0, C, size=(R, n)).astype(np.int32)
+    prev[:, rng.choice(n, size=5, replace=False)] = -1
+    zt, xt = _transposed(z), _transposed(x)
+    u_j = jpm.pack_markov_u(jnp.asarray(zt), jnp.asarray(xt), T=T, d=d, l=l, pad_to=512)
+    u_t = tmk.pack_markov_u(torch.from_numpy(zt), torch.from_numpy(xt), T=T, d=d, l=l)
+    return (T, d, l), lens, Wg, prev, u_j, u_t
+
+
+def _assert_outputs_match(out_t, out_j):
+    a_j, c_j, s_j, g_j, o_j = (np.asarray(v) for v in out_j)
+    a_t, c_t, s_t, g_t, o_t = (v.numpy() for v in out_t)
+    np.testing.assert_array_equal(a_t, a_j)
+    np.testing.assert_array_equal(c_t, c_j)
+    np.testing.assert_array_equal(s_t, s_j)
+    np.testing.assert_allclose(g_t, g_j, rtol=1e-10, atol=1e-10)
+    np.testing.assert_allclose(o_t, o_j, rtol=1e-10, atol=1e-10)
+    return a_t, o_t
+
+
+@pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
+@pytest.mark.parametrize("nan_cluster", [None, 0, 1])
+def test_fused_packed_multi_plain_matches_jax_kernel(assign_mode, nan_cluster):
+    (T, d, l), lens, Wg, prev, u_j, u_t = _multi_problem(nan_cluster)
+    force = FORCE if assign_mode == "argmax" else None
+    out_j = jpm.markov_em_fused_packed_multi(
+        u_j, jnp.asarray(lens), jnp.asarray(prev), jnp.asarray(Wg), T=T, d=d,
+        l=l, assign_mode=assign_mode,
+        force_prev=None if force is None else jnp.asarray(force), interpret=True,
+    )
+    out_t = tmk.markov_em_fused_packed_multi(
+        u_t, torch.from_numpy(lens), torch.from_numpy(prev), torch.from_numpy(Wg),
+        T=T, d=d, l=l, assign_mode=assign_mode, force_prev=force,
+    )
+    a_t, o_t = _assert_outputs_match(out_t, out_j)
+    if assign_mode == "argmax":
+        assert np.all(o_t[FORCE == 1] == 0.0)  # forced slots: objective 0
+        np.testing.assert_array_equal(
+            a_t[FORCE == 1], np.where(prev[FORCE == 1] >= 0, prev[FORCE == 1], C)
+        )
+        if nan_cluster == 1:  # strict scan: a NaN never wins
+            assert not np.any(a_t[FORCE == 0] == 1)
+            assert np.all(np.isfinite(o_t))
+
+
+@pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
+@pytest.mark.parametrize("nan_cluster", [None, 1])
+def test_fused_packed_plain_matches_jax_kernel(assign_mode, nan_cluster):
+    (T, d, l), lens, Wg, prev, u_j, u_t = _multi_problem(nan_cluster)
+    for r in range(prev.shape[0]):
+        out_j = jpm.markov_em_fused_packed(
+            u_j, jnp.asarray(lens), jnp.asarray(prev[r]), jnp.asarray(Wg[r]),
+            T=T, d=d, l=l, assign_mode=assign_mode, interpret=True,
+        )
+        out_t = tmk.markov_em_fused_packed(
+            u_t, torch.from_numpy(lens), torch.from_numpy(prev[r]),
+            torch.from_numpy(Wg[r]), T=T, d=d, l=l, assign_mode=assign_mode,
+        )
+        a_t, o_t = _assert_outputs_match(out_t, out_j)
+        if nan_cluster is not None and assign_mode == "argmax":
+            # first maximum, NaN counted as the maximum (jnp.argmax)
+            assert np.all(a_t[prev[r] >= 0] == nan_cluster) and np.isnan(o_t)
+
+
+@pytest.mark.parametrize("storage", ["wide", "i16"])
+@pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
+@pytest.mark.parametrize("nan_cluster", [None, 1])
+def test_em_from_features_multi_plain_matches_jax_kernel(storage, assign_mode, nan_cluster):
+    (T, d, l), lens, Wg, prev, u_j, u_t = _multi_problem(nan_cluster)
+    n = prev.shape[1]
+    phi_j = jpm.markov_materialize_features(
+        u_j, jnp.asarray(lens), T=T, d=d, l=l, block_n=512, interpret=True
+    )
+    phi_t = torch.from_numpy(np.asarray(phi_j)[:, :n].copy())
+    if storage == "i16":
+        phi_j, phi_t = jpm.quantize_phi(phi_j), tmk.quantize_phi(phi_t)
+    force = FORCE if assign_mode == "argmax" else None
+    out_j = jpm.markov_em_from_features_multi(
+        phi_j, jnp.asarray(lens), jnp.asarray(prev), jnp.asarray(Wg), T=T, d=d,
+        l=l, assign_mode=assign_mode,
+        force_prev=None if force is None else jnp.asarray(force), interpret=True,
+    )
+    out_t = tmk.markov_em_from_features_multi(
+        phi_t, torch.from_numpy(lens), torch.from_numpy(prev), torch.from_numpy(Wg),
+        T=T, d=d, l=l, assign_mode=assign_mode, force_prev=force,
+    )
+    _assert_outputs_match(out_t, out_j)
+    # restart by restart, K3's plain version is K1's on the slot's inputs
+    # wherever the scores are finite (or the slot takes prev)
+    if nan_cluster is None:
+        for r in range(prev.shape[0]):
+            mode = "prev" if force is not None and FORCE[r] else assign_mode
+            one = tmk.markov_em_from_features(
+                phi_t, torch.from_numpy(prev[r]), torch.from_numpy(Wg[r]),
+                T=T, d=d, l=l, assign_mode=mode,
+            )
+            for m, o in zip((v[r] for v in out_t[:4]), one[:4]):
+                assert torch.equal(m, o)

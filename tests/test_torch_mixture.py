@@ -85,8 +85,12 @@ def test_unported_routes_raise(adni_data):
         tm.train()
     with pytest.raises(NotImplementedError, match="item 6"):
         tm.train(fast=True, verbose=True)
-    with pytest.raises(NotImplementedError, match="item 4"):
-        tm.train_with_multiple_random_starts()
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tm.train_with_multiple_random_starts(verbose=True)
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tm.train_with_multiple_random_starts(use_cache=False)  # fast=None on the CPU
+    with pytest.raises(NotImplementedError, match="item 5"):
+        tm.train_with_multiple_random_starts(fast=False, use_cache=False)
     with pytest.raises(NotImplementedError):
         tm.bic()
     zg = zs.copy()
@@ -97,3 +101,5 @@ def test_unported_routes_raise(adni_data):
     gapped = TorchMixture(n_clusters=3, states=zg, observations=xg)
     with pytest.raises(NotImplementedError, match="items 5 and 7"):
         gapped.train(fast=True)
+    with pytest.raises(NotImplementedError, match="items 5 and 7"):
+        gapped.train_with_multiple_random_starts(fast=True, use_cache=False)
