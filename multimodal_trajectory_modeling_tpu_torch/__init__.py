@@ -5,18 +5,27 @@ names its counterpart there and is held against it by the
 ``tests/test_torch_*.py`` suite.  This package imports ``torch`` and never
 ``jax``.
 
-What is ported so far is the Markov EM fast path for suffix-only
-missingness (variable-length, NaN-suffix-padded trajectories):
-``MMLinGaussSS_marginalizable(...).train(fast=True)`` and the slot-pool
-multistart ``train_with_multiple_random_starts(fast=True)``, with its own
-k-means init (no scikit-learn), the gzip-pickle cache, and five
-hand-written CUDA kernels (``ops/markov_kernels.py``, sources in
-``csrc/``).  Every other route raises ``NotImplementedError`` naming the
-ROADMAP item that will bring it.
+What is ported so far:
+
+- the Markov EM fast path for suffix-only missingness (variable-length,
+  NaN-suffix-padded trajectories): ``train(fast=True)`` and the slot-pool
+  multistart ``train_with_multiple_random_starts(fast=True)``, with its own
+  k-means init (no scikit-learn) and the gzip-pickle cache; kernels K1-K4b
+  (``ops/markov_kernels.py``);
+- the dense joint route for any missingness: ``train()`` and the dense
+  multistart in plain torch, and ``train(fast=True)`` / the fast
+  multistart on interior missingness (up to 256 patterns and
+  T(d+l) ≤ 512) through the pattern-sorted trainer, with kernels K8
+  (``ops/estep_kernels.py``) and K9 (``ops/mstep_kernels.py``).
+
+The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
+route raises ``NotImplementedError`` naming the ROADMAP item that will
+bring it.
 
 Devices are explicit: public entry points take ``device=`` (default
-``"cpu"``) and ``dtype=`` (default float64 on the CPU, float32 on CUDA).
-Nothing moves work between devices on its own.
+``"cuda"``, the card; the tests pass ``device="cpu"``) and ``dtype=``
+(default float64 on the CPU, float32 on CUDA).  Nothing moves work
+between devices on its own.
 """
 
 from multimodal_trajectory_modeling_tpu_torch.device import (

@@ -3,8 +3,10 @@
 The JAX package switches platform and precision globally
 (``config.py:23``).  The port instead takes ``device=`` and ``dtype=`` at
 every public entry point and resolves them here: float64 on the CPU (the
-parity mode the JAX tests run in), float32 on CUDA.  Asking for CUDA
-without a card raises; nothing falls back to the CPU.
+parity mode the JAX tests run in), float32 on CUDA.  The default device is
+the card; the CPU runs only where the caller asks for it (``device="cpu"``,
+as the tests do).  Asking for CUDA without a card raises; nothing falls
+back to the CPU.
 """
 
 from __future__ import annotations
@@ -12,9 +14,9 @@ from __future__ import annotations
 import torch
 
 
-def resolve_device(device="cpu") -> torch.device:
-    """``torch.device`` for ``device``; raises if CUDA is asked for and
-    absent."""
+def resolve_device(device="cuda") -> torch.device:
+    """``torch.device`` for ``device`` (default the card); raises if CUDA
+    is asked for and absent."""
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(

@@ -1,4 +1,5 @@
-"""The Markov EM engine (``em``) and the public mixture class."""
+"""The EM engine (``em``: the Markov and dense joint routes) and the public
+mixture class."""
 
 from multimodal_trajectory_modeling_tpu_torch.models.mixture import (
     MMLinGaussSS_marginalizable,

@@ -1,7 +1,7 @@
 """Hard-assignment EM for mixtures of LG-SSMs: the Markov fast path, for
-one fit and for many starts.
+one fit and for many starts, and the dense joint route.
 
-Counterpart of ``multimodal_trajectory_modeling_tpu/models/em.py`` for
+Counterpart of ``multimodal_trajectory_modeling_tpu/models/em.py``.  For
 suffix-only missingness (variable-length, NaN-suffix-padded
 trajectories): ``MixtureParams`` and the status codes (:93-118),
 ``counts_from_assign`` (:372), ``_unpack_markov_em_stats`` (:484),
@@ -14,18 +14,27 @@ trajectories): ``MixtureParams`` and the status codes (:93-118),
 ``train_em_markov_multi`` (:2261), ``_pool_window_protocol`` (:2358),
 ``_pool_window`` (:2414), ``_run_slot_pool`` (:2464),
 ``train_em_markov_pool`` (:2587) and ``complete_data_loglik_markov_multi``
-(:2704).
+(:2704).  For any missingness, the dense joint route: ``pack_joint``
+(:121), ``cluster_joint_moments`` (:144), ``estep_logliks`` (:171),
+``assignments_from_logliks`` (:367), ``estep_assign_sorted`` (:382),
+``mstep_sorted`` (:872), ``mstep`` (:920), ``complete_data_loglik``
+(:1028), ``model_loglik`` (:1047), ``train_em`` (:1261),
+``train_em_sorted`` (:1663) and ``train_em_multistart`` (:2762).
 
-A fit materializes the feature matrix Φ once (kernel K2), stores it int16
-under float32 compute, and runs every iteration as one Φ-reading kernel
-(K1; K3 for R restarts at once) followed by small per-cluster solves;
-``precompute=False`` rebuilds Φ from the packed batch in every iteration
-instead (K4a; K4b for R restarts).  The multistart objectives come from
-K4a/K4b on the wide packed batch.  The JAX package traces each loop into
-one ``while_loop`` or ``fori_loop``; here a single fit is a Python loop
-that reads one status scalar from the device per iteration, and the slot
-pool runs ``sync_every`` passes per window with one status read per
-window.
+A Markov fit materializes the feature matrix Φ once (kernel K2), stores
+it int16 under float32 compute, and runs every iteration as one
+Φ-reading kernel (K1; K3 for R restarts at once) followed by small
+per-cluster solves; ``precompute=False`` rebuilds Φ from the packed batch
+in every iteration instead (K4a; K4b for R restarts).  The multistart
+objectives come from K4a/K4b on the wide packed batch.  The dense route
+evaluates every instance's masked joint Gaussian: ``train_em`` in plain
+torch (one grouped log-density per cluster, time-batched statistics), and
+``train_em_sorted`` over a batch sorted by missingness pattern through
+one E-step kernel (K8) and one Gram kernel (K9) per iteration.  The JAX
+package traces each loop into one ``while_loop`` or ``fori_loop``; here a
+single fit is a Python loop that reads one status scalar from the device
+per iteration, and the slot pool runs ``sync_every`` passes per window
+with one status read per window.
 
 Row-vector convention: ``z' = z A``, ``x = z H``.
 """
@@ -43,8 +52,12 @@ from multimodal_trajectory_modeling_tpu_torch.device import (
     resolve_device,
     resolve_dtype,
 )
+from multimodal_trajectory_modeling_tpu_torch.ops import estep_kernels as ek
+from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov as mops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
+from multimodal_trajectory_modeling_tpu_torch.ops import moments as jmom
+from multimodal_trajectory_modeling_tpu_torch.ops import mstep_kernels as msk
 from multimodal_trajectory_modeling_tpu_torch.ops import regression as rops
 
 __all__ = [
@@ -54,20 +67,32 @@ __all__ = [
     "STATUS_CONVERGED",
     "STATUS_EMPTY_CLUSTER",
     "STATUS_INIT_ABORT",
+    "assignments_from_logliks",
+    "cluster_joint_moments",
+    "complete_data_loglik",
     "complete_data_loglik_markov",
     "complete_data_loglik_markov_multi",
     "counts_from_assign",
     "emstep_markov",
     "emstep_markov_multi",
+    "estep_assign_sorted",
+    "estep_logliks",
     "markov_packed_ok",
     "mixture_params_from_numpy",
     "mixture_params_to_numpy",
+    "model_loglik",
+    "mstep",
+    "mstep_sorted",
+    "pack_joint",
     "pack_markov_batch",
     "pack_markov_features",
     "stack_params",
+    "train_em",
     "train_em_markov",
     "train_em_markov_multi",
     "train_em_markov_pool",
+    "train_em_multistart",
+    "train_em_sorted",
     "unstack_params",
 ]
 
@@ -95,10 +120,11 @@ class MixtureParams(NamedTuple):
         return self.pi.shape[0]
 
 
-def mixture_params_from_numpy(params, *, device="cpu", dtype=None):
-    """:class:`MixtureParams` on ``device`` from the seven fields (pi, m, S,
-    A, G, H, L) as arrays — numpy, or anything ``np.asarray`` takes, such
-    as the JAX package's ``MixtureParams``."""
+def mixture_params_from_numpy(params, *, device="cuda", dtype=None):
+    """:class:`MixtureParams` on ``device`` (the card unless the caller
+    asks for the CPU) from the seven fields (pi, m, S, A, G, H, L) as
+    arrays — numpy, or anything ``np.asarray`` takes, such as the JAX
+    package's ``MixtureParams``."""
     dev = resolve_device(device)
     dt = resolve_dtype(dev, dtype)
     return MixtureParams(
@@ -764,3 +790,295 @@ def complete_data_loglik_markov_multi(
     if phi is not None:
         return mk.markov_em_from_features_multi(phi, lens, prev, Wg, T=T, d=d, l=l)[4]
     return mk.markov_em_fused_packed_multi(u, lens, prev, Wg, T=T, d=d, l=l)[4]
+
+
+# ----------------------------------------------------------------------
+# The dense joint route
+# ----------------------------------------------------------------------
+
+
+def pack_joint(z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """``(T, n, d)`` states and ``(T, n, l)`` observations in the joint
+    layout ``[z_1..z_T, x_1..x_T]`` per instance: ``(n, T·(d+l))``."""
+    T, n, d = z.shape
+    l = x.shape[-1]
+    return torch.cat(
+        [z.permute(1, 0, 2).reshape(n, T * d), x.permute(1, 0, 2).reshape(n, T * l)],
+        dim=1,
+    )
+
+
+def cluster_joint_moments(params: MixtureParams, T: int):
+    """Per-cluster joint ``(mean (C, D), cov (C, D, D))``."""
+    return (
+        jmom.joint_mean(T, params.m, params.A, params.H),
+        jmom.joint_cov(T, params.S, params.A, params.G, params.H, params.L),
+    )
+
+
+def estep_logliks(
+    params: MixtureParams,
+    v: torch.Tensor,  # (n, D) packed joint rows
+    patterns: torch.Tensor,  # (P, D) bool
+    pattern_id: torch.Tensor,  # (n,) int
+    *,
+    T: int,
+    method: str = "auto",
+) -> torch.Tensor:
+    """``(C, n)`` per-cluster log-likelihoods of every instance, NaN
+    coordinates marginalized (:func:`..ops.gaussian.masked_mvn_logpdf_grouped`
+    with ``method``)."""
+    if method == "pallas":
+        raise NotImplementedError(
+            "estep_logliks(method='pallas') has no production caller and its "
+            "kernel is not ported (ROADMAP Queue 2)"
+        )
+    means, covs = cluster_joint_moments(params, T)
+    return torch.stack([
+        gops.masked_mvn_logpdf_grouped(v, mu, cov, patterns, pattern_id, method=method)
+        for mu, cov in zip(means, covs)
+    ])
+
+
+def assignments_from_logliks(pi: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+    """Hard assignment ``argmax_c (log π_c + ll_c)``, ``(n,)`` int32: the
+    first maximum, and a NaN wins (``jnp.argmax``)."""
+    return mk._argmax_first(torch.log(pi)[:, None] + ll)[1]
+
+
+def mstep(
+    z: torch.Tensor,  # (T, n, d)
+    x: torch.Tensor,  # (T, n, l)
+    assign: torch.Tensor,  # (n,) int
+    *,
+    n_clusters: int,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    impl: str = "xla",
+) -> MixtureParams:
+    """Closed-form M step for all clusters: π from the memberships, the
+    initial moments from the finite first states, the transition and
+    measurement regressions over every finite pair.  ``impl="xla"`` takes
+    the time-batched statistics, ``impl="gram"`` their one-Gram form
+    (equal in float64)."""
+    if impl == "pallas":
+        raise NotImplementedError(
+            "mstep(impl='pallas') has no production caller and its kernel is "
+            "not ported (ROADMAP Queue 2)"
+        )
+    if impl not in ("xla", "gram"):
+        raise ValueError(f"unknown impl {impl!r}")
+    lanes = torch.arange(n_clusters, dtype=assign.dtype, device=assign.device)
+    W = (assign[:, None] == lanes).to(z.dtype)  # (n, C); labels out of range → 0
+    stats_fn = (
+        rops.weighted_regression_stats_gram
+        if impl == "gram"
+        else rops.weighted_regression_stats_timebatched
+    )
+    pi = W.mean(0)
+    m0, S0 = rops.masked_mean_and_cov(z[0], W)
+    A, G = rops.solve_regression(stats_fn(z[:-1], z[1:], W), mode=reg_mode, alpha=alpha)
+    H, L = rops.solve_regression(stats_fn(z, x, W), mode=reg_mode, alpha=alpha)
+    return MixtureParams(pi, m0, S0, A, G, H, L)
+
+
+def complete_data_loglik(
+    params: MixtureParams, v, patterns, pattern_id, *, T: int, method: str = "auto"
+) -> torch.Tensor:
+    """The hard-assignment complete-data objective under a fresh E step,
+    ``Σ_i (log π_a + ll_a)``, as a 0-d tensor (``em.py:1028``)."""
+    ll = estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
+    a = assignments_from_logliks(params.pi, ll).long()
+    return torch.log(params.pi)[a].sum() + ll.gather(0, a[None])[0].sum()
+
+
+def model_loglik(
+    params: MixtureParams, v, patterns, pattern_id, *, T: int, method: str = "auto"
+) -> torch.Tensor:
+    """The mixture's marginal log-likelihood ``Σ_i log Σ_c π_c L_ci``
+    (logsumexp), as a 0-d tensor (``em.py:1047``)."""
+    ll = estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
+    return torch.logsumexp(torch.log(params.pi)[:, None] + ll, dim=0).sum()
+
+
+def _dense_loop(params0, assign0, C, estep_fn, mstep_fn, *, n_steps, min_members):
+    """The status protocol of every dense trainer (``train_em``,
+    ``em.py:1261``): an init guard, an M step from ``assign0``, then E
+    and M up to ``n_steps``, one device→host status read per iteration.
+    ``estep_fn(params, prev) -> (assign, counts, switches)``."""
+    assign0 = assign0.to(torch.int32)
+    if int(counts_from_assign(assign0, C).amin()) <= min_members:
+        return params0, assign0, 0, STATUS_INIT_ABORT
+    params = mstep_fn(assign0)
+    assign = assign0
+    status = STATUS_RUNNING
+    it = 0
+    while status == STATUS_RUNNING and it < n_steps:
+        assign, counts, switches = estep_fn(params, assign)
+        status = int(
+            _em_termination(switches, counts, STATUS_RUNNING, min_members=min_members)[3]
+        )
+        if status == STATUS_RUNNING:
+            params = mstep_fn(assign)
+        it += 1
+    return params, assign, it, status
+
+
+def train_em(
+    params0: MixtureParams,
+    assign0: torch.Tensor,  # (n,) int
+    z: torch.Tensor,  # (T, n, d)
+    x: torch.Tensor,  # (T, n, l)
+    v: torch.Tensor,  # (n, D) pack_joint(z, x)
+    patterns: torch.Tensor,  # (P, D) bool
+    pattern_id: torch.Tensor,  # (n,) int
+    *,
+    n_steps: int = 1000,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    method: str = "auto",
+    min_members: int = 3,
+):
+    """Hard EM on the dense joint, the bit-parity route: ``(params,
+    assign, iterations, status)`` (Python ints for the last two).
+
+    1. if some cluster of ``assign0`` has ≤ ``min_members`` members,
+       return untouched (STATUS_INIT_ABORT);
+    2. an M step from ``assign0``;
+    3. up to ``n_steps``: E; no switches → CONVERGED; a near-empty cluster
+       → EMPTY_CLUSTER (assignment updated, parameters kept); else M."""
+    T = z.shape[0]
+    C = params0.pi.shape[0]
+
+    def estep_fn(params, prev):
+        ll = estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
+        a = assignments_from_logliks(params.pi, ll)
+        return a, counts_from_assign(a, C), (a != prev).sum()
+
+    def mstep_fn(a):
+        return mstep(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
+
+    return _dense_loop(
+        params0, assign0, C, estep_fn, mstep_fn, n_steps=n_steps, min_members=min_members
+    )
+
+
+def train_em_multistart(
+    params0: MixtureParams,  # leading R axis on every leaf
+    assign0: torch.Tensor,  # (R, n) int
+    z, x, v, patterns, pattern_id,
+    *,
+    n_steps: int = 100,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    method: str = "auto",
+    min_members: int = 3,
+):
+    """R dense fits, one after another, each with its objective under a
+    fresh E step: ``(params, assign (R, n), iters (R,), status (R,), obj
+    (R,))``, restart r as the JAX package's vmapped ``em.py:2762`` gives
+    it (a standalone :func:`train_em` run)."""
+    T = z.shape[0]
+    fits, objs = [], []
+    for p0, a0 in zip(unstack_params(params0), assign0):
+        fit = train_em(
+            p0, a0, z, x, v, patterns, pattern_id, n_steps=n_steps,
+            reg_mode=reg_mode, alpha=alpha, method=method, min_members=min_members,
+        )
+        fits.append(fit)
+        objs.append(complete_data_loglik(fit[0], v, patterns, pattern_id, T=T, method=method))
+    params, assign, iters, status = zip(*fits)
+
+    def ints(vals):
+        return torch.tensor(vals, dtype=torch.int32, device=assign0.device)
+
+    return stack_params(params), torch.stack(assign), ints(iters), ints(status), torch.stack(objs)
+
+
+def estep_assign_sorted(
+    params: MixtureParams,
+    v_sorted: torch.Tensor,  # (n, D) rows grouped by pattern
+    patterns: torch.Tensor,  # (P, D) bool
+    prev_assign: torch.Tensor,  # (n,) int32
+    *,
+    sizes: tuple,
+    T: int,
+    v_sorted_t: torch.Tensor | None = None,  # (D, n), the transposed copy
+):
+    """The E step over a pattern-sorted batch, ``(assign, counts,
+    switches)``, from the per-(cluster, pattern) inverses and kernel K8;
+    the (C, n) log-likelihoods never reach device memory.  Pass
+    ``v_sorted_t`` to skip the transpose (trainers make it once)."""
+    if v_sorted_t is None:
+        v_sorted_t = v_sorted.T.contiguous()
+    means, covs = cluster_joint_moments(params, T)
+    minv, const = ek.precompute_cluster_pattern_inverses(means, covs, patterns)
+    return ek.estep_assign_pattern_sorted_t(
+        v_sorted_t, prev_assign, means, minv, const, torch.log(params.pi), patterns,
+        sizes=sizes,
+    )
+
+
+def mstep_sorted(
+    v_sorted: torch.Tensor,  # (n, D) rows grouped by pattern
+    assign: torch.Tensor,  # (n,) int32
+    patterns: torch.Tensor,  # (P, D) bool
+    *,
+    sizes: tuple,
+    T: int,
+    d: int,
+    l: int,
+    n_clusters: int,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+) -> MixtureParams:
+    """The M step of a pattern-sorted batch from kernel K9's per-segment
+    Grams, π from their counts (``em.py:872``)."""
+    tstats, mstats, istats, counts = msk.mstep_stats_gram_sorted(
+        v_sorted, assign, patterns, sizes=sizes, T=T, d=d, l=l, n_clusters=n_clusters
+    )
+    pi = counts / v_sorted.shape[0]
+    m0, S0 = rops.mean_cov_from_stats(istats)
+    A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
+    H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
+    return MixtureParams(pi, m0, S0, A, G, H, L)
+
+
+def train_em_sorted(
+    params0: MixtureParams,
+    assign0: torch.Tensor,  # (n,) int, in sorted order
+    z: torch.Tensor,  # (T, n, d), rows in sorted order
+    x: torch.Tensor,  # (T, n, l)
+    v: torch.Tensor,  # (n, D) pack_joint(z, x), sorted by pattern
+    patterns: torch.Tensor,  # (P, D) bool
+    *,
+    sizes: tuple,
+    n_steps: int = 1000,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    min_members: int = 3,
+):
+    """:func:`train_em` over a batch sorted by missingness pattern
+    (``np.argsort(pattern_id, kind="stable")``, segment sizes ``sizes``):
+    one K8 launch per E step, one K9 launch per M step.  The assignment
+    comes back in sorted order.  The same trajectory as :func:`train_em`
+    in float64; in float32 up to reassociation."""
+    T, d, l = z.shape[0], z.shape[-1], x.shape[-1]
+    C = params0.pi.shape[0]
+    sizes = tuple(int(s) for s in sizes)
+    v_t = v.T.contiguous()  # the E step's layout, made once
+
+    def estep_fn(params, prev):
+        return estep_assign_sorted(
+            params, v, patterns, prev, sizes=sizes, T=T, v_sorted_t=v_t
+        )
+
+    def mstep_fn(a):
+        return mstep_sorted(
+            v, a, patterns, sizes=sizes, T=T, d=d, l=l, n_clusters=C,
+            reg_mode=reg_mode, alpha=alpha,
+        )
+
+    return _dense_loop(
+        params0, assign0, C, estep_fn, mstep_fn, n_steps=n_steps, min_members=min_members
+    )

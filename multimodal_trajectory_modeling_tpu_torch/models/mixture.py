@@ -2,11 +2,17 @@
 
 Counterpart of ``multimodal_trajectory_modeling_tpu/models/mixture.py``:
 the constructor (:69-174) with its RNG contract, the parameter plumbing
-(:180-199), the per-instance suffix gate (:238), the ``correspondence``
-property (:334-346), the gzip-pickle cache (``to_pickle``/``from_pickle``,
-:348-425), ``train`` (:803-921) and ``train_with_multiple_random_starts``
-(:1012-1472), both on their suffix-missingness route, the Markov EM fast
-path.
+(:180-199), the route predicate ``_needs_masked_filter_route`` (:201), the
+per-instance suffix gate (:238), ``_packed`` (:261), the
+``correspondence`` property (:334-346), the gzip-pickle cache
+(``to_pickle``/``from_pickle``, :348-425), ``train`` (:803-921) and
+``train_with_multiple_random_starts`` (:1012-1472), on the Markov route
+(suffix missingness) and the dense joint route (any missingness within
+its size gate).
+
+The suffix gate is taken per instance, before the joint batch is packed,
+so the Markov route never packs it; it is the same gate as the JAX
+package's per-pattern ``_suffix_pattern_lens``.
 
 RNG contract: the parameter inits draw from the global NumPy RNG in the
 reference's order, and the random assignment from
@@ -40,6 +46,7 @@ from multimodal_trajectory_modeling_tpu_torch.device import (
 )
 from multimodal_trajectory_modeling_tpu_torch.models import em
 from multimodal_trajectory_modeling_tpu_torch.models.kmeans import kmeans_labels
+from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
 
 np_eps = np.finfo(float).eps
 
@@ -96,7 +103,7 @@ class MMLinGaussSS_marginalizable:
         init: str = "random",
         alpha: float = 0.0,
         *,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype | None = None,
     ):
         self.device = resolve_device(device)
@@ -126,6 +133,7 @@ class MMLinGaussSS_marginalizable:
         # what the multistart that chose this model did (see
         # train_with_multiple_random_starts)
         self.last_multistart = None
+        self._packed_cache = None
 
     def _init_model(self, random_seed, init, alpha) -> None:
         """The constructor's draws, in the reference's order: parameter
@@ -196,6 +204,7 @@ class MMLinGaussSS_marginalizable:
         cand.last_trained = None
         cand.last_iterations = cand.last_status = None
         cand.last_multistart = None
+        cand._packed_cache = None
         return cand
 
     def _kmeans(self, features: np.ndarray) -> np.ndarray:
@@ -245,6 +254,56 @@ class MMLinGaussSS_marginalizable:
         self.transition_covs = list(G)
         self.measurement_matrices = list(H)
         self.measurement_covs = list(L)
+
+    def _needs_masked_filter_route(self, T, n_patterns) -> bool:
+        """Whether the dense (T(d+l))² joint is too large for the fast
+        routes, which then take the O(T) masked filter: a joint dimension
+        past 512 or more than 256 missingness patterns.  One predicate for
+        ``train(fast=True)`` and the fast multistart."""
+        return (
+            T * (self.d_states + self.d_observations) > 512
+            or n_patterns > 256
+        )
+
+    def _packed(self):
+        """The training data on ``device`` for the dense route, packed
+        once per model: ``(z, x, v (n, T·(d+l)), patterns (P, D) bool,
+        pattern_id (n,) numpy int32)``, patterns in ``np.unique`` order."""
+        if self._packed_cache is None:
+            v_np = em.pack_joint(
+                torch.from_numpy(self.states), torch.from_numpy(self.observations)
+            ).numpy()
+            patterns, pid = gops.pattern_groups(v_np)
+
+            def on_device(a, dtype):
+                return torch.as_tensor(a, dtype=dtype, device=self.device)
+
+            self._packed_cache = (
+                on_device(self.states, self.dtype),
+                on_device(self.observations, self.dtype),
+                on_device(v_np, self.dtype),
+                on_device(patterns, torch.bool),
+                pid,
+            )
+        return self._packed_cache
+
+    def _sorted_batch(self):
+        """The packed data sorted by missingness pattern for
+        :func:`em.train_em_sorted`: ``(order, sizes, z, x, v, patterns,
+        pattern_id)``, rows in ``order`` (an (n,) index tensor on
+        ``device``); raises for the masked-filter route."""
+        z, x, v, patterns, pid = self._packed()
+        if self._needs_masked_filter_route(self.n_timesteps, patterns.shape[0]):
+            raise NotImplementedError(
+                f"{patterns.shape[0]} missingness patterns at T(d+l) = "
+                f"{v.shape[1]}: past 256 patterns or 512 the fast route is the "
+                "masked Kalman filter, not ported (ROADMAP Queue 1, item 7)"
+            )
+        order = np.argsort(pid, kind="stable")
+        sizes = tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0]))
+        pid_s = torch.as_tensor(pid[order], device=self.device)
+        order = torch.as_tensor(order, device=self.device)
+        return order, sizes, z[:, order], x[:, order], v[order], patterns, pid_s
 
     @staticmethod
     def _suffix_instance_lens(z_np, x_np):
@@ -342,7 +401,7 @@ class MMLinGaussSS_marginalizable:
         file: str | os.PathLike,
         training_data: dict = None,
         *,
-        device="cpu",
+        device="cuda",
         dtype: torch.dtype | None = None,
     ):
         """A model from a pickle of :meth:`to_pickle` (of either package),
@@ -388,45 +447,55 @@ class MMLinGaussSS_marginalizable:
         """EM to convergence (0 switches) or ``n_steps``, with the
         near-empty-cluster guards.
 
-        Only ``fast=True`` on data with suffix-only missingness (variable
-        trajectory lengths) is ported: it runs :func:`em.train_em_markov`.
-        Every other route raises ``NotImplementedError``."""
+        ``fast=False`` runs the dense joint route :func:`em.train_em` (plain
+        torch).  ``fast=True`` takes, on suffix-only missingness (variable
+        trajectory lengths), the Markov route :func:`em.train_em_markov`;
+        on any other missingness with at most 256 patterns and T(d+l) ≤ 512
+        the pattern-sorted dense route :func:`em.train_em_sorted` (kernels
+        K8 and K9), whose sort is undone on return.  ``verbose=True``,
+        ``MTM_MARKOV_OOC=1`` and the masked-filter route past that size
+        gate raise ``NotImplementedError``."""
         if verbose:
             raise NotImplementedError(
                 "train(verbose=True), the host-stepped loop, is not ported "
                 "(ROADMAP Queue 1, item 6)"
             )
-        if not fast:
-            raise NotImplementedError(
-                "train(fast=False), the dense bit-parity route, is not "
-                "ported (ROADMAP Queue 1, item 5)"
-            )
-        if os.environ.get("MTM_MARKOV_OOC") == "1":
+        if fast and os.environ.get("MTM_MARKOV_OOC") == "1":
             raise NotImplementedError(
                 "MTM_MARKOV_OOC=1, out-of-core training, is not ported "
                 "(ROADMAP Queue 1, item 9)"
             )
-        lens = self._suffix_instance_lens(self.states, self.observations)
-        if lens is None:
-            raise NotImplementedError(
-                "missingness other than a pure time suffix needs the masked "
-                "Kalman or dense route (ROADMAP Queue 1, items 5 and 7)"
-            )
         reg_mode = "ridge" if self.alpha > 2 * np_eps else "lstsq"
+        fit = dict(n_steps=n_steps, reg_mode=reg_mode, alpha=float(self.alpha))
 
         def on_device(a, dtype):
             return torch.as_tensor(a, dtype=dtype, device=self.device)
 
-        params, assign, iters, status = em.train_em_markov(
-            self._stacked_params(),
-            on_device(self.cluster_assignment, torch.int32),
-            on_device(self.states, self.dtype),
-            on_device(self.observations, self.dtype),
-            on_device(lens, torch.int32),
-            n_steps=n_steps,
-            reg_mode=reg_mode,
-            alpha=float(self.alpha),
-        )
+        assign0 = on_device(self.cluster_assignment, torch.int32)
+        lens = self._suffix_instance_lens(self.states, self.observations) if fast else None
+        if lens is not None:
+            params, assign, iters, status = em.train_em_markov(
+                self._stacked_params(),
+                assign0,
+                on_device(self.states, self.dtype),
+                on_device(self.observations, self.dtype),
+                on_device(lens, torch.int32),
+                **fit,
+            )
+        elif fast:
+            order, sizes, z, x, v, patterns, _pid = self._sorted_batch()
+            params, assign_s, iters, status = em.train_em_sorted(
+                self._stacked_params(), assign0[order], z, x, v, patterns,
+                sizes=sizes, **fit,
+            )
+            assign = torch.empty_like(assign_s)
+            assign[order] = assign_s  # undo the sort
+        else:
+            z, x, v, patterns, pid = self._packed()
+            params, assign, iters, status = em.train_em(
+                self._stacked_params(), assign0, z, x, v, patterns,
+                on_device(pid, torch.int32), **fit,
+            )
         self.last_iterations, self.last_status = iters, status
         if status == em.STATUS_INIT_ABORT:
             # the reference returns before stamping last_trained
@@ -470,30 +539,37 @@ class MMLinGaussSS_marginalizable:
         starts_per_batch: int = 256,
         fast: bool = None,
     ):
-        """The reference multistart protocol on the suffix-missingness
-        route.
+        """The reference multistart protocol.
 
         A cached model of the same data hash is returned if ``use_cache``.
         Else the candidates are one k-means start (seed 0) and
         ``n_starts`` random starts (seeds 100+i), drawn from the global
-        NumPy RNG in constructor order.  They train through the slot pool
-        (:func:`em.train_em_markov_pool`, ``MTM_MULTISTART_FUSE`` slots,
-        default 32) with objectives from K4b in pool-sized groups, or, with
-        one candidate or ``MTM_MULTISTART_FUSE`` ≤ 1, one after another
-        (:func:`em.train_em_markov`, objectives from K4a).  The winner is
-        the first candidate whose objective is strictly greater than all
-        before it; if it is not finite, ``Exception("training failed")``.
-        ``fast=None`` takes this route at n ≥ 200 000 on a CUDA device.
+        NumPy RNG in constructor order, and each is trained and scored by
+        its complete-data objective under a fresh E step:
 
-        The winner's ``last_multistart`` records the run: the k-means
-        seconds, every candidate's iterations and status, and the pool's
-        :class:`em.PoolStats` (None on the sequential branch).
+        - ``fast=True`` on suffix missingness: the slot pool
+          (:func:`em.train_em_markov_pool`, ``MTM_MULTISTART_FUSE`` slots,
+          default 32) with objectives from K4b in pool-sized groups, or,
+          with one candidate or ``MTM_MULTISTART_FUSE`` ≤ 1, one after
+          another (:func:`em.train_em_markov`, objectives from K4a);
+        - ``fast=True`` on other missingness: one after another through
+          the pattern-sorted :func:`em.train_em_sorted`, objectives from
+          :func:`em.complete_data_loglik`;
+        - ``fast=False``: the dense :func:`em.train_em_multistart`;
+          ``starts_per_batch`` is accepted, and changes nothing here, where
+          the candidates train one after another.
 
-        ``verbose=True``, the dense vmapped multistart (``fast=False``,
-        and ``fast=None`` resolving to it), other missingness, long T and
-        ``MTM_MULTICHIP=1`` on several cards raise
-        ``NotImplementedError``.  ``starts_per_batch`` sizes only the
-        dense route's batches."""
+        ``fast=None`` takes ``fast=True`` at n ≥ 200 000 on a CUDA device.
+        The winner is the first candidate whose objective is strictly
+        greater than all before it; if it is not finite,
+        ``Exception("training failed")``.  The winner's ``last_multistart``
+        records the run: the k-means seconds, every candidate's iterations
+        and status, and the pool's :class:`em.PoolStats` (None off the
+        pool).
+
+        ``verbose=True``, the masked-filter route, long T on the Markov
+        route and ``MTM_MULTICHIP=1`` on several cards raise
+        ``NotImplementedError``."""
         if verbose:
             raise NotImplementedError(
                 "verbose multistart, the host-stepped transcript, is not "
@@ -505,25 +581,15 @@ class MMLinGaussSS_marginalizable:
                 return cached
         if fast is None:
             fast = self.n_data >= 200_000 and self.device.type == "cuda"
-        if not fast:
-            raise NotImplementedError(
-                "the vmapped dense multistart (fast=False) is not ported "
-                "(ROADMAP Queue 1, item 5)"
-            )
-        lens = self._suffix_instance_lens(self.states, self.observations)
-        if lens is None:
-            raise NotImplementedError(
-                "missingness other than a pure time suffix needs the masked "
-                "Kalman or dense route (ROADMAP Queue 1, items 5 and 7)"
-            )
+        lens = self._suffix_instance_lens(self.states, self.observations) if fast else None
         T, d, l = self.n_timesteps, self.d_states, self.d_observations
-        if not em.markov_packed_ok(T, d, l):
+        r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
+        pooled = lens is not None and r_fuse > 1 and n_starts > 0
+        if lens is not None and not em.markov_packed_ok(T, d, l):
             raise NotImplementedError(
                 "long-T multistart needs the grid-over-T kernels (ROADMAP "
                 "Queue 2, K5/K6)"
             )
-        r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
-        pooled = r_fuse > 1 and n_starts > 0
         if (
             pooled
             and os.environ.get("MTM_MULTICHIP") == "1"
@@ -534,22 +600,26 @@ class MMLinGaussSS_marginalizable:
                 "the data-parallel pool (MTM_MULTICHIP=1) is not ported "
                 "(ROADMAP Queue 1, item 9)"
             )
+        sorted_batch = self._sorted_batch() if fast and lens is None else None
 
         t0 = time.perf_counter()
         candidates = [self._candidate(0, "kmeans")]
         kmeans_s = time.perf_counter() - t0
         candidates += [self._candidate(100 + i) for i in range(n_starts)]
         reg_mode = "ridge" if self.alpha > 2 * np_eps else "lstsq"
+        fit = dict(n_steps=n_steps, reg_mode=reg_mode, alpha=float(self.alpha))
 
         def on_device(a, dtype):
             return torch.as_tensor(a, dtype=dtype, device=self.device)
 
-        z = on_device(self.states, self.dtype)
-        x = on_device(self.observations, self.dtype)
-        lens_d = on_device(lens, torch.int32)
-        n = self.n_data
-        z_t = z.permute(0, 2, 1).reshape(T * d, n)
-        x_t = x.permute(0, 2, 1).reshape(T * l, n)
+        pool_stats = None
+        if lens is not None:
+            z = on_device(self.states, self.dtype)
+            x = on_device(self.observations, self.dtype)
+            lens_d = on_device(lens, torch.int32)
+            n = self.n_data
+            z_t = z.permute(0, 2, 1).reshape(T * d, n)
+            x_t = x.permute(0, 2, 1).reshape(T * l, n)
         if pooled:
             u = em.pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
             del z_t, x_t
@@ -560,10 +630,8 @@ class MMLinGaussSS_marginalizable:
                 x,
                 lens_d,
                 R=r_fuse,
-                n_steps=n_steps,
-                reg_mode=reg_mode,
-                alpha=float(self.alpha),
                 u=u,
+                **fit,
             )
             # objectives (Σ max scores under a fresh E) in pool-sized groups
             objectives = []
@@ -571,8 +639,8 @@ class MMLinGaussSS_marginalizable:
                 grp = em.stack_params([p for p, *_ in results[i0 : i0 + r_fuse]])
                 objs = em.complete_data_loglik_markov_multi(grp, lens_d, u, T=T)
                 objectives += objs.cpu().tolist()
-        else:
-            results, objectives, pool_stats = [], [], None
+        elif lens is not None:
+            results, objectives = [], []
             for cand in candidates:
                 res = em.train_em_markov(
                     cand._stacked_params(),
@@ -580,14 +648,38 @@ class MMLinGaussSS_marginalizable:
                     z,
                     x,
                     lens_d,
-                    n_steps=n_steps,
-                    reg_mode=reg_mode,
-                    alpha=float(self.alpha),
+                    **fit,
                 )
                 results.append(res)
                 objectives.append(
                     float(em.complete_data_loglik_markov(res[0], z_t, x_t, lens_d, T=T))
                 )
+        elif fast:
+            order, sizes, z, x, v, patterns, pid = sorted_batch
+            results, objectives = [], []
+            for cand in candidates:
+                params_c, assign_s, iters_c, status_c = em.train_em_sorted(
+                    cand._stacked_params(),
+                    on_device(cand.cluster_assignment, torch.int32)[order],
+                    z, x, v, patterns, sizes=sizes, **fit,
+                )
+                assign_c = torch.empty_like(assign_s)
+                assign_c[order] = assign_s  # undo the sort
+                results.append((params_c, assign_c, iters_c, status_c))
+                objectives.append(
+                    float(em.complete_data_loglik(params_c, v, patterns, pid, T=T))
+                )
+        else:
+            z, x, v, patterns, pid = self._packed()
+            params_b, assign_b, iters_b, status_b, obj_b = em.train_em_multistart(
+                em.stack_params([c._stacked_params() for c in candidates]),
+                on_device(np.stack([c.cluster_assignment for c in candidates]), torch.int32),
+                z, x, v, patterns, on_device(pid, torch.int32), **fit,
+            )
+            results = list(zip(
+                em.unstack_params(params_b), assign_b, iters_b.tolist(), status_b.tolist()
+            ))
+            objectives = obj_b.cpu().tolist()
 
         objectives = np.asarray(objectives)
         best_i = 0

@@ -1,2 +1,4 @@
-"""Numerical ops of the port: small linear algebra in plain torch, and the
-Markov EM kernels (``markov_kernels``, CUDA sources in ``csrc/``)."""
+"""Numerical ops of the port: small linear algebra, moments and masked
+Gaussian densities in plain torch, and the CUDA kernels of the Markov EM
+(``markov_kernels``) and of the sorted dense route (``estep_kernels``,
+``mstep_kernels``), sources in ``csrc/``."""

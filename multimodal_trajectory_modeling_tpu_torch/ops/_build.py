@@ -48,6 +48,12 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
+    "mtm_estep_assign_block": [_I, _I, _I],
+    "mtm_estep_assign": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_mstep_gram_padded": [_I],
+    "mtm_mstep_gram": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
 }
 
 

@@ -3,9 +3,12 @@
 Counterpart of ``multimodal_trajectory_modeling_tpu/ops/regression.py``:
 ``RegressionStats`` (:52), ``_psd_pinv_solve`` (:157), ``solve_regression``
 (:171) in its four modes, ``MomentStats`` (:242) and
-``mean_cov_from_stats`` (:263).  The statistics arrive already summed (by
-the Markov EM kernel); what remains is small batched (C, p, p) linear
-algebra in plain torch.
+``mean_cov_from_stats`` (:263), and the statistics of the dense M step:
+``weighted_regression_stats`` (:63), its time-batched (:91) and Gram
+(:117) forms, ``masked_moment_stats`` (:250) and ``masked_mean_and_cov``
+(:278).  A row (or pair) with a non-finite coordinate is dropped by a
+where-select, never by a multiply with a 0/1 mask, so an ``inf`` cannot
+turn into NaN.  The rest is small batched (C, p, p) linear algebra.
 
 A failed factorization gives NaN, never an exception, as in JAX: a
 degenerate cluster then ends the fit with the same status code in both
@@ -22,8 +25,13 @@ import torch
 __all__ = [
     "RegressionStats",
     "MomentStats",
-    "solve_regression",
+    "masked_mean_and_cov",
+    "masked_moment_stats",
     "mean_cov_from_stats",
+    "solve_regression",
+    "weighted_regression_stats",
+    "weighted_regression_stats_gram",
+    "weighted_regression_stats_timebatched",
 ]
 
 
@@ -44,6 +52,72 @@ class MomentStats(NamedTuple):
     count: torch.Tensor  # (C,)
     s: torch.Tensor  # (C, d)   Σ w z
     ss: torch.Tensor  # (C, d, d)  Σ w z zᵀ
+
+
+def weighted_regression_stats(
+    X: torch.Tensor, Y: torch.Tensor, W: torch.Tensor
+) -> RegressionStats:
+    """Weighted sufficient statistics of the rows ``X (N, p)``, ``Y (N,
+    q)`` under weights ``W (N, C)``; a row takes part only if every
+    coordinate of ``[X_row, Y_row]`` is finite."""
+    valid = torch.isfinite(X).all(-1) & torch.isfinite(Y).all(-1)
+    Xc = torch.where(valid[:, None], X, 0.0)
+    Yc = torch.where(valid[:, None], Y, 0.0)
+    Wv = torch.where(valid[:, None], W, 0.0)
+    return RegressionStats(
+        xtx=torch.einsum("nc,ni,nj->cij", Wv, Xc, Xc),
+        xty=torch.einsum("nc,ni,nj->cij", Wv, Xc, Yc),
+        yty=torch.einsum("nc,ni,nj->cij", Wv, Yc, Yc),
+        sx=Wv.T @ Xc,
+        sy=Wv.T @ Yc,
+        count=Wv.sum(0),
+    )
+
+
+def _valid_pairs(X, Y):
+    """Per-(t, n) pair validity of ``X (T', n, p)``, ``Y (T', n, q)`` and
+    both with the invalid pairs zeroed."""
+    valid = torch.isfinite(X).all(-1) & torch.isfinite(Y).all(-1)  # (T', n)
+    Xm = torch.where(valid[..., None], X, 0.0)
+    Ym = torch.where(valid[..., None], Y, 0.0)
+    return valid, Xm, Ym
+
+
+def weighted_regression_stats_timebatched(
+    X: torch.Tensor, Y: torch.Tensor, W: torch.Tensor
+) -> RegressionStats:
+    """Time-batched statistics: pairs ``X (T', n, p)``, ``Y (T', n, q)``
+    under a per-instance weight ``W (n, C)`` at every step, the time axis
+    contracted inside the sums."""
+    valid, Xm, Ym = _valid_pairs(X, Y)
+    return RegressionStats(
+        xtx=torch.einsum("tni,tnj,nc->cij", Xm, Xm, W),
+        xty=torch.einsum("tni,tnj,nc->cij", Xm, Ym, W),
+        yty=torch.einsum("tni,tnj,nc->cij", Ym, Ym, W),
+        sx=torch.einsum("tni,nc->ci", Xm, W),
+        sy=torch.einsum("tni,nc->ci", Ym, W),
+        count=torch.einsum("tn,nc->c", valid.to(W.dtype), W),
+    )
+
+
+def weighted_regression_stats_gram(
+    X: torch.Tensor, Y: torch.Tensor, W: torch.Tensor
+) -> RegressionStats:
+    """:func:`weighted_regression_stats_timebatched` as one Gram sum: with
+    ``U = [X_masked, Y_masked, valid]``, ``G = Σ_t Σ_n w_nc U Uᵀ`` holds
+    every statistic in its (p, q, 1) blocks."""
+    valid, Xm, Ym = _valid_pairs(X, Y)
+    U = torch.cat([Xm, Ym, valid.to(W.dtype)[..., None]], dim=-1)  # (T', n, u)
+    G = torch.einsum("tnu,tnv,nc->cuv", U, U, W)
+    p, q = X.shape[-1], Y.shape[-1]
+    return RegressionStats(
+        xtx=G[:, :p, :p],
+        xty=G[:, :p, p : p + q],
+        yty=G[:, p : p + q, p : p + q],
+        sx=G[:, -1, :p],
+        sy=G[:, -1, p : p + q],
+        count=G[:, -1, -1],
+    )
 
 
 def _nan_where(ok: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
@@ -122,3 +196,24 @@ def mean_cov_from_stats(
     )
     cov = centered / (count[:, None, None] - 1.0)
     return mean, cov
+
+
+def masked_moment_stats(Z: torch.Tensor, W: torch.Tensor) -> MomentStats:
+    """Moments of the fully finite rows of ``Z (N, d)`` under weights
+    ``W (N, C)``."""
+    valid = torch.isfinite(Z).all(-1)
+    Zc = torch.where(valid[:, None], Z, 0.0)
+    Wv = torch.where(valid[:, None], W, 0.0)
+    return MomentStats(
+        count=Wv.sum(0),
+        s=Wv.T @ Zc,
+        ss=torch.einsum("nc,ni,nj->cij", Wv, Zc, Zc),
+    )
+
+
+def masked_mean_and_cov(
+    Z: torch.Tensor, W: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-cluster mean and ddof-1 covariance of the fully finite rows of
+    ``Z`` under ``W``."""
+    return mean_cov_from_stats(masked_moment_stats(Z, W))

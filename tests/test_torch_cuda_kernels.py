@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3, K4a and K4b against their plain torch
-versions on the card.  Without a card every test here skips; on the card run
+"""The CUDA kernels K1, K2, K3, K4a, K4b, K8 and K9 against their plain
+torch versions on the card.  Without a card every test here skips; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -14,7 +14,12 @@ float64 top-2 gap is below 1e-4·(1 + |score|).  K3 is K1 for R restarts:
 slot r equals a K1 call on slot r's weights bit for bit (assignments,
 counts, switches, int16 statistics, objective).
 K4a/K4b rebuild Φ from the packed batch in f32/f64: their objectives agree
-with the plain versions to 1e-5 (f32) or 1e-10 (f64) relative.  Every
+with the plain versions to 1e-5 (f32) or 1e-10 (f64) relative.  K8 (the
+sorted E step) may flip an assignment only where the float64 top-2 score
+gap is below 1e-4·(1 + |score|) in float32 (1e-9 in float64); its counts
+and switches are exact for its own assignments.  K9 (the sorted M-step
+Grams) agrees with the plain version in float64 to 1e-4 (float32) or
+1e-11 (float64) of the same sums over |v|: summation order.  Every
 kernel gives the same bits from run to run, float statistics included.
 """
 
@@ -23,8 +28,11 @@ import pytest
 import torch
 
 from multimodal_trajectory_modeling_tpu_torch.models import em as tem
+from multimodal_trajectory_modeling_tpu_torch.ops import estep_kernels as ek
+from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov as mops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
+from multimodal_trajectory_modeling_tpu_torch.ops import mstep_kernels as msk
 
 pytestmark = pytest.mark.cuda
 
@@ -350,3 +358,144 @@ def test_pool_cuda_f64_matches_sequential(cuda):
         for x_g, x_s in zip(p_g, p_s):
             np.testing.assert_allclose(x_g.cpu().numpy(), x_s.cpu().numpy(), rtol=1e-10, atol=1e-10)
     assert got[2][3] == tem.STATUS_INIT_ABORT
+
+
+def _dense_inputs(cuda, T, n, seed, C=16, d=5, l=3):
+    """A gapped batch sorted by pattern, on the card in float64: ``(v (n,
+    D), sizes, patterns, E-step operands (means, minv, const, logpi), prev,
+    assign)``.  Lengths T//2, T-2 or T; a quarter lose one interior step,
+    a tenth x at t=0; an empty segment and a one-row segment appended."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d)) * 2.0
+    x = z @ rng.normal(size=(d, l)) + rng.normal(size=(T, n, l))
+    lens = rng.choice([T // 2, T - 2, T], size=n)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past] = np.nan
+    x[past] = np.nan
+    gap = np.where(rng.uniform(size=n) < 0.25)[0]
+    tg = rng.integers(1, 4, size=gap.size)  # interior for every length ≥ 5
+    z[tg, gap] = np.nan
+    x[tg, gap] = np.nan
+    x[0, rng.uniform(size=n) < 0.1] = np.nan
+    z[:, -1] = np.nan  # row n-1: only x observed, its own segment
+    v = tem.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
+    patterns, pid = gops.pattern_groups(v)
+    order = np.argsort(pid, kind="stable")
+    patterns = np.concatenate([patterns, np.ones((1, v.shape[1]), bool)])  # empty
+    sizes = tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0]))
+    assert 0 in sizes and 1 in sizes
+    eye = lambda k: np.stack([np.eye(k)] * C)  # noqa: E731
+    params = tem.mixture_params_from_numpy(
+        (np.full(C, 1.0 / C), rng.normal(size=(C, d)), eye(d),
+         rng.normal(scale=0.3, size=(C, d, d)), eye(d), rng.normal(size=(C, d, l)), eye(l)),
+        device=cuda, dtype=torch.float64,
+    )
+    means, covs = tem.cluster_joint_moments(params, T)
+    pat = torch.tensor(patterns, device=cuda)
+    minv, const = ek.precompute_cluster_pattern_inverses(means, covs, pat)
+    prev = torch.tensor(rng.integers(0, C, size=n).astype(np.int32), device=cuda)
+    prev[::53] = -1
+    assign = torch.tensor(rng.integers(0, C, size=n).astype(np.int32), device=cuda)
+    vd = torch.tensor(v[order], device=cuda)
+    return vd, sizes, pat, (means, minv, const, torch.log(params.pi)), prev, assign
+
+
+@pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500)])
+@pytest.mark.parametrize("dtype,tie", [(torch.float32, 1e-4), (torch.float64, 1e-9)])
+def test_estep_kernel_matches_plain(cuda, T, n, dtype, tie):
+    """K8 at D = 80 and D = 512 (the route's largest)."""
+    v, sizes, pat, ops, prev, _assign = _dense_inputs(cuda, T, n, seed=T)
+    v_t = v.T.contiguous()
+    args = (v_t.to(dtype), prev, *(o.to(dtype) for o in ops), pat)
+    before = ek.estep_assign_pattern_sorted_t.launches
+    a, c, s = ek.estep_assign_pattern_sorted_t(*args, sizes=sizes)
+    assert ek.estep_assign_pattern_sorted_t.launches == before + 1
+    valid = prev >= 0
+    C = ops[0].shape[0]
+    assert bool((a[~valid] == C).all())
+    scores = ek.sorted_scores(v_t, *ops, pat, sizes=sizes)  # float64
+    top2 = scores.topk(2, dim=0).values
+    near = (top2[0] - top2[1]) < tie * (1 + top2[0].abs())
+    ref = scores.argmax(dim=0).to(torch.int32)
+    assert bool(((a == ref) | near | ~valid).all())
+    assert torch.equal(c.long(), torch.bincount(a[valid].long(), minlength=C))
+    assert int(s) == int(((a != prev) & valid).sum())
+    for x1, x2 in zip((a, c, s), ek.estep_assign_pattern_sorted_t(*args, sizes=sizes)):
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_mstep_gram_kernel_matches_plain(cuda, T, n, dtype, rel):
+    """K9 at D = 80 and D = 512; an assignment outside [0, C) counts
+    nowhere."""
+    v, sizes, pat, ops, _prev, assign = _dense_inputs(cuda, T, n, seed=T + 1)
+    C = ops[0].shape[0]
+    assign[7] = C
+    kw = dict(sizes=sizes, T=T, d=5, l=3, n_clusters=C)
+    before = msk.mstep_stats_gram_sorted.launches
+    got = msk.mstep_stats_gram_sorted(v.to(dtype), assign, pat, **kw)
+    assert msk.mstep_stats_gram_sorted.launches == before + 1
+    want = msk.mstep_stats_gram_sorted_plain(v, assign, pat, **kw)
+    mag = msk.mstep_stats_gram_sorted_plain(v.abs(), assign, pat, **kw)
+    flat = lambda out: [f for st in out[:3] for f in st] + [out[3]]  # noqa: E731
+    for g, w, m in zip(flat(got), flat(want), flat(mag)):
+        assert g.dtype == dtype
+        assert bool(((g.double() - w).abs() <= rel * m + 1e-30).all())
+    assert float(got[3].sum()) == n - 1  # the member counts, exact
+    for x1, x2 in zip(flat(got), flat(msk.mstep_stats_gram_sorted(v.to(dtype), assign, pat, **kw))):
+        assert torch.equal(x1, x2)
+
+
+def test_dense_kernels_refuse_bad_arguments(cuda):
+    v, sizes, pat, ops, prev, assign = _dense_inputs(cuda, 10, 2000, seed=3)
+    v_t = v.T.contiguous()
+    with pytest.raises(ValueError, match="int32"):
+        ek.estep_assign_pattern_sorted_t(v_t, prev.long(), *ops, pat, sizes=sizes)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ek.estep_assign_pattern_sorted_t(v_t.half(), prev, *ops, pat, sizes=sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        ek.estep_assign_pattern_sorted_t(v.T, prev, *ops, pat, sizes=sizes)
+    kw = dict(sizes=sizes, T=10, d=5, l=3, n_clusters=16)
+    with pytest.raises(ValueError, match="int32"):
+        msk.mstep_stats_gram_sorted(v, assign.long(), pat, **kw)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        msk.mstep_stats_gram_sorted(v.half(), assign, pat, **kw)
+    with pytest.raises(ValueError):
+        msk.mstep_stats_gram_sorted(v[:-1], assign[:-1], pat, **kw)
+
+
+def test_train_em_sorted_cuda_f64_matches_cpu(cuda):
+    """The sorted dense fit on the card in float64 (K8 and K9 every
+    iteration) lands where the CPU fit does."""
+    rng = np.random.default_rng(9)
+    T, n, d, l, C = 5, 4000, 2, 3, 2
+    labels = rng.integers(0, C, size=n)
+    z = rng.normal(size=(T, n, d)) + 4.0 * labels[None, :, None]
+    x = rng.normal(size=(T, n, l)) - 3.0 * labels[None, :, None]
+    z[2, ::5] = np.nan  # interior gaps
+    x[2, ::5] = np.nan
+    x[0, ::7] = np.nan
+    v = tem.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
+    patterns, pid = gops.pattern_groups(v)
+    order = np.argsort(pid, kind="stable")
+    sizes = tuple(int(c) for c in np.bincount(pid))
+    assign0 = np.where(rng.uniform(size=n) < 0.2, 1 - labels, labels)[order]
+    params0 = (
+        np.full(C, 0.5), rng.normal(size=(C, d)), np.stack([np.eye(d)] * C),
+        np.zeros((C, d, d)), np.stack([np.eye(d)] * C),
+        rng.normal(size=(C, d, l)), np.stack([np.eye(l)] * C),
+    )
+    fits = []
+    for dev in ("cpu", "cuda"):
+        t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+        fits.append(tem.train_em_sorted(
+            tem.mixture_params_from_numpy(params0, device=dev, dtype=torch.float64),
+            t(assign0, torch.int32), t(z[:, order]), t(x[:, order]), t(v[order]),
+            t(patterns, torch.bool), sizes=sizes,
+        ))
+    (p_c, a_c, i_c, s_c), (p_g, a_g, i_g, s_g) = fits
+    assert (i_g, s_g) == (i_c, s_c) and s_c == tem.STATUS_CONVERGED
+    assert torch.equal(a_g.cpu(), a_c)
+    for x_c, x_g in zip(p_c, p_g):
+        np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)

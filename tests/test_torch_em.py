@@ -60,7 +60,7 @@ def _fit_both(params, assign0, z, x, lens, **kw):
         **kw,
     )
     pt, at, it, st = tem.train_em_markov(
-        tem.mixture_params_from_numpy(params),
+        tem.mixture_params_from_numpy(params, device="cpu"),
         torch.from_numpy(assign0.astype(np.int32)),
         torch.from_numpy(z),
         torch.from_numpy(x),
@@ -106,7 +106,7 @@ def test_train_em_markov_precompute_off_matches_jax(seed):
         np.testing.assert_allclose(a, np.asarray(b), rtol=1e-10, atol=1e-10)
     # the same trajectory as with Φ materialized once
     pp, ap, ip, sp = tem.train_em_markov(
-        tem.mixture_params_from_numpy(params0), torch.from_numpy(assign0.astype(np.int32)),
+        tem.mixture_params_from_numpy(params0, device="cpu"), torch.from_numpy(assign0.astype(np.int32)),
         torch.from_numpy(z), torch.from_numpy(x), torch.from_numpy(lens), n_steps=50,
     )
     assert (ip, sp) == (it, st)
@@ -147,7 +147,7 @@ def test_train_em_markov_init_abort_matches_jax():
 def test_unported_branches_raise(monkeypatch):
     z, x, lens, labels = _two_cluster_data(4, n=50)
     args = (
-        tem.mixture_params_from_numpy(_init_params(4, 2, 2, 3)),
+        tem.mixture_params_from_numpy(_init_params(4, 2, 2, 3), device="cpu"),
         torch.from_numpy(labels),
         torch.from_numpy(z),
         torch.from_numpy(x),

@@ -31,7 +31,7 @@ def test_port_never_imports_jax():
         "from multimodal_trajectory_modeling_tpu_torch.models import "
         "MMLinGaussSS_marginalizable as M\n"
         "z = np.random.default_rng(0).normal(size=(3, 50, 2))\n"
-        "M(2, z, z, init='kmeans')\n"
+        "M(2, z, z, init='kmeans', device='cpu')\n"
         "bad = sorted(m for m in sys.modules if m == 'jax' or m.startswith("
         "('jax.', 'multimodal_trajectory_modeling_tpu.', 'sklearn')) or m == "
         "'multimodal_trajectory_modeling_tpu')\n"
@@ -55,6 +55,25 @@ def test_cuda_device_raises_without_a_card():
     z = np.zeros((3, 10, 2))
     with pytest.raises(RuntimeError, match="CUDA is not available"):
         MMLinGaussSS_marginalizable(2, z, z, device="cuda")
+
+
+def test_default_device_is_the_card(tmp_path):
+    """With no ``device=``, the constructor, ``from_pickle`` and
+    ``em.mixture_params_from_numpy`` ask for the card; without one they
+    raise."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA card is present")
+    z = np.random.default_rng(0).normal(size=(3, 10, 2))
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MMLinGaussSS_marginalizable(2, z, z)
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        tem.mixture_params_from_numpy([np.ones(2)] * 7)
+    MMLinGaussSS_marginalizable(2, z, z, device="cpu").to_pickle(save_location=str(tmp_path))
+    (path,) = tmp_path.glob("mmm-*.p.gz")
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        MMLinGaussSS_marginalizable.from_pickle(path, training_data={"states": z, "observations": z})
+    with pytest.raises(RuntimeError, match="CUDA is not available"):
+        resolve_device()
 
 
 def test_default_dtypes():

@@ -69,7 +69,7 @@ def test_kmeans_init_matches_jax_constructor(adni_states, init):
     np.random.seed(0)
     jm = JaxMixture(n_clusters=3, states=zs, observations=x, random_seed=1, init=init)
     np.random.seed(0)
-    tm = TorchMixture(n_clusters=3, states=zs, observations=x, random_seed=1, init=init)
+    tm = TorchMixture(n_clusters=3, states=zs, observations=x, random_seed=1, init=init, device="cpu")
     np.testing.assert_array_equal(tm.cluster_assignment, jm.cluster_assignment)
 
 
@@ -82,4 +82,4 @@ def test_non_finite_input_raises_as_sklearn(adni_states):
         JaxMixture(n_clusters=3, states=zs, observations=x, init="kmeans-all")
     np.random.seed(0)
     with pytest.raises(ValueError, match="NaN"):
-        TorchMixture(n_clusters=3, states=zs, observations=x, init="kmeans-all")
+        TorchMixture(n_clusters=3, states=zs, observations=x, init="kmeans-all", device="cpu")

@@ -39,7 +39,7 @@ def _pair(zs, x, seed, **kw):
     np.random.seed(seed)
     jm = JaxMixture(n_clusters=3, states=zs, observations=x, **kw)
     np.random.seed(seed)
-    tm = TorchMixture(n_clusters=3, states=zs, observations=x, **kw)
+    tm = TorchMixture(n_clusters=3, states=zs, observations=x, device="cpu", **kw)
     return jm, tm
 
 
@@ -78,28 +78,37 @@ def test_train_fast_matches_jax_on_adni(adni_data, seed):
         )
 
 
-def test_unported_routes_raise(adni_data):
+def test_unported_routes_raise(adni_data, monkeypatch):
+    """What still raises: the verbose transcript, the inference methods,
+    out-of-core training and the masked-filter route (more than 256
+    patterns, or T(d+l) > 512)."""
     zs, x = adni_data
     _jm, tm = _pair(zs, x, 0)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.train()
+    with pytest.raises(NotImplementedError, match="item 6"):
+        tm.train(verbose=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         tm.train(fast=True, verbose=True)
     with pytest.raises(NotImplementedError, match="item 6"):
         tm.train_with_multiple_random_starts(verbose=True)
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.train_with_multiple_random_starts(use_cache=False)  # fast=None on the CPU
-    with pytest.raises(NotImplementedError, match="item 5"):
-        tm.train_with_multiple_random_starts(fast=False, use_cache=False)
     with pytest.raises(NotImplementedError):
         tm.bic()
-    zg = zs.copy()
-    zg[0, 0, :] = np.nan  # a gap before observed steps
-    xg = x.copy()
-    xg[0, 0, :] = np.nan
+    monkeypatch.setenv("MTM_MARKOV_OOC", "1")
+    with pytest.raises(NotImplementedError, match="item 9"):
+        tm.train(fast=True)
+    monkeypatch.delenv("MTM_MARKOV_OOC")
+    rng = np.random.default_rng(0)
+    zg, xg = zs.copy(), x.copy()  # unstructured missingness
+    zg[rng.uniform(size=zg.shape) < 0.3] = np.nan
+    xg[rng.uniform(size=xg.shape) < 0.3] = np.nan
     np.random.seed(0)
-    gapped = TorchMixture(n_clusters=3, states=zg, observations=xg)
-    with pytest.raises(NotImplementedError, match="items 5 and 7"):
-        gapped.train(fast=True)
-    with pytest.raises(NotImplementedError, match="items 5 and 7"):
-        gapped.train_with_multiple_random_starts(fast=True, use_cache=False)
+    scattered = TorchMixture(n_clusters=3, states=zg, observations=xg, device="cpu")
+    assert scattered._packed()[3].shape[0] > 256
+    long_t = np.random.default_rng(1).normal(size=(90, 40, 3))
+    long_t[1, 0] = np.nan  # an interior gap at T(d+l) = 540
+    np.random.seed(0)
+    long_model = TorchMixture(n_clusters=2, states=long_t, observations=long_t, device="cpu")
+    for model in (scattered, long_model):
+        with pytest.raises(NotImplementedError, match="item 7"):
+            model.train(fast=True)
+        with pytest.raises(NotImplementedError, match="item 7"):
+            model.train_with_multiple_random_starts(fast=True, use_cache=False)

@@ -86,7 +86,7 @@ def _jstack(ps):
 
 
 def _tstack(ps):
-    return tem.stack_params([tem.mixture_params_from_numpy(p) for p in ps])
+    return tem.stack_params([tem.mixture_params_from_numpy(p, device="cpu") for p in ps])
 
 
 def _t(a):
@@ -180,7 +180,7 @@ def test_complete_data_loglik_markov_matches_jax():
             _jparams(ps[r]), jnp.asarray(zt), jnp.asarray(xt), jnp.asarray(lens), T=T
         )
         one_t = tem.complete_data_loglik_markov(
-            tem.mixture_params_from_numpy(ps[r]), _t(zt), _t(xt), _t(lens), T=T
+            tem.mixture_params_from_numpy(ps[r], device="cpu"), _t(zt), _t(xt), _t(lens), T=T
         )
         np.testing.assert_allclose(float(one_t), float(one_j), rtol=1e-10)
 
@@ -213,7 +213,7 @@ def test_pool_matches_jax_and_sequential():
     sequential ``train_em_markov`` give it."""
     (z, x, lens), ps, assigns = _pool_problem()
     got, stats = tem.train_em_markov_pool(
-        [tem.mixture_params_from_numpy(p) for p in ps], assigns,
+        [tem.mixture_params_from_numpy(p, device="cpu") for p in ps], assigns,
         _t(z), _t(x), _t(lens), R=3, n_steps=5,
     )
     assert stats.windows >= 3 and stats.status_reads == stats.windows
@@ -226,7 +226,7 @@ def test_pool_matches_jax_and_sequential():
     assert got[2][3] == tem.STATUS_INIT_ABORT
     seq = [
         tem.train_em_markov(
-            tem.mixture_params_from_numpy(p), _t(a), _t(z), _t(x), _t(lens), n_steps=5
+            tem.mixture_params_from_numpy(p, device="cpu"), _t(a), _t(z), _t(x), _t(lens), n_steps=5
         )
         for p, a in zip(ps, assigns)
     ]
@@ -249,7 +249,7 @@ def test_pool_edge_cases(case):
         ps, assigns = [ps[0]] * 3, [bad] * 3
     R = 32 if case == "fewer_candidates_than_slots" else 2
     got, _stats = tem.train_em_markov_pool(
-        [tem.mixture_params_from_numpy(p) for p in ps], assigns,
+        [tem.mixture_params_from_numpy(p, device="cpu") for p in ps], assigns,
         _t(z), _t(x), _t(lens), R=R, n_steps=4,
     )
     if case == "all_abort":
@@ -271,7 +271,7 @@ def test_pool_unported_options_raise():
     (z, x, lens), ps, assigns = _pool_problem()
     with pytest.raises(NotImplementedError, match="item 9"):
         tem.train_em_markov_pool(
-            [tem.mixture_params_from_numpy(p) for p in ps[:2]], assigns[:2],
+            [tem.mixture_params_from_numpy(p, device="cpu") for p in ps[:2]], assigns[:2],
             _t(z), _t(x), _t(lens), mesh=object(),
         )
 
@@ -298,7 +298,7 @@ def test_multistart_matches_jax_on_adni(adni_data, monkeypatch, fuse, C, alpha):
     np.random.seed(0)
     jb, jo = JaxMixture(**model).train_with_multiple_random_starts(**kw)
     np.random.seed(0)
-    tb, to = TorchMixture(**model).train_with_multiple_random_starts(**kw)
+    tb, to = TorchMixture(**model, device="cpu").train_with_multiple_random_starts(**kw)
     np.testing.assert_allclose(to, jo, rtol=1e-10)
     top2 = np.sort(jo)[-2:]
     assert (top2[1] - top2[0]) > 1e-8 * abs(top2[1])
@@ -321,13 +321,13 @@ def test_candidate_equals_constructor(adni_data):
     the same seed and init, from the same global RNG state."""
     zs, x = adni_data
     np.random.seed(3)
-    base = TorchMixture(n_clusters=3, states=zs, observations=x)
+    base = TorchMixture(n_clusters=3, states=zs, observations=x, device="cpu")
     state = np.random.get_state()
     cands = [base._candidate(0, "kmeans"), base._candidate(101)]
     np.random.set_state(state)
     built = [
-        TorchMixture(n_clusters=3, states=zs, observations=x, random_seed=0, init="kmeans"),
-        TorchMixture(n_clusters=3, states=zs, observations=x, random_seed=101),
+        TorchMixture(n_clusters=3, states=zs, observations=x, random_seed=0, init="kmeans", device="cpu"),
+        TorchMixture(n_clusters=3, states=zs, observations=x, random_seed=101, device="cpu"),
     ]
     for c, b in zip(cands, built):
         assert c.hex_hash == b.hex_hash and c.init == b.init
@@ -342,11 +342,11 @@ def test_cache_round_trip(adni_data, tmp_path, monkeypatch):
     zs, x = adni_data
     monkeypatch.setattr(tmixture, "home_dir", str(tmp_path))
     np.random.seed(0)
-    m = TorchMixture(n_clusters=3, states=zs, observations=x)
+    m = TorchMixture(n_clusters=3, states=zs, observations=x, device="cpu")
     best = m.train_with_multiple_random_starts(n_starts=1, fast=True)
     files = glob.glob(os.path.join(tmp_path, "tmp", f"mmm-{m.hex_hash}-*.p.gz"))
     assert len(files) == 1
-    again = TorchMixture(n_clusters=3, states=zs, observations=x)
+    again = TorchMixture(n_clusters=3, states=zs, observations=x, device="cpu")
     loaded = again.train_with_multiple_random_starts(n_starts=1, fast=True)
     assert loaded.last_trained == best.last_trained
     np.testing.assert_array_equal(loaded.cluster_assignment, best.cluster_assignment)
@@ -357,7 +357,7 @@ def test_cache_round_trip(adni_data, tmp_path, monkeypatch):
     files = glob.glob(os.path.join(tmp_path, "tmp", f"mmm-{m.hex_hash}-*.p.gz"))
     assert len(files) == 1
     reloaded = TorchMixture.from_pickle(
-        files[0], training_data={"states": zs, "observations": x}
+        files[0], training_data={"states": zs, "observations": x}, device="cpu"
     )
     assert reloaded.inverse_correspondence == {"B": 0, "A": 1, "C": 2}
 
@@ -369,7 +369,7 @@ def test_jax_pickle_loads_in_port(adni_data, tmp_path):
     jm.train(fast=True)
     jm.to_pickle(save_location=str(tmp_path), include_training_data=True)
     (path,) = glob.glob(os.path.join(tmp_path, "mmm-*.p.gz"))
-    tm = TorchMixture.from_pickle(path)
+    tm = TorchMixture.from_pickle(path, device="cpu")
     assert tm.hex_hash == jm.hex_hash and tm.last_trained == jm.last_trained
     assert tm.correspondence == jm.correspondence
     np.testing.assert_array_equal(tm.cluster_assignment, jm.cluster_assignment)

@@ -171,11 +171,11 @@ def test_mixture_params_round_trip():
         rng.normal(size=(C, l, l)),
     )
     jparams = jem.MixtureParams(*map(jnp.asarray, fields))
-    tparams = tem.mixture_params_from_numpy(jparams)
+    tparams = tem.mixture_params_from_numpy(jparams, device="cpu")
     assert tparams.m.dtype == torch.float64 and tparams.n_clusters == C
     back = tem.mixture_params_to_numpy(tparams)
     assert len(back) == 7
     for a, b in zip(back, fields):
         np.testing.assert_array_equal(a, b)
-    f32 = tem.mixture_params_from_numpy(fields, dtype=torch.float32)
+    f32 = tem.mixture_params_from_numpy(fields, device="cpu", dtype=torch.float32)
     assert f32.L.dtype == torch.float32 and f32.L.shape == (C, l, l)
