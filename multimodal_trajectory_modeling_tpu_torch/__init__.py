@@ -8,15 +8,20 @@ names its counterpart there and is held against it by the
 What is ported so far:
 
 - the Markov EM fast path for suffix-only missingness (variable-length,
-  NaN-suffix-padded trajectories): ``train(fast=True)`` and the slot-pool
-  multistart ``train_with_multiple_random_starts(fast=True)``, with its own
-  k-means init (no scikit-learn) and the gzip-pickle cache; kernels K1-K4b
-  (``ops/markov_kernels.py``);
+  NaN-suffix-padded trajectories) at any T: ``train(fast=True)`` and the
+  slot-pool multistart ``train_with_multiple_random_starts(fast=True)``,
+  with its own k-means init (no scikit-learn) and the gzip-pickle cache;
+  kernels K1-K5 (``ops/markov_kernels.py``);
 - the dense joint route for any missingness: ``train()`` and the dense
   multistart in plain torch, and ``train(fast=True)`` / the fast
   multistart on interior missingness (up to 256 patterns and
   T(d+l) ≤ 512) through the pattern-sorted trainer, with kernels K8
-  (``ops/estep_kernels.py``) and K9 (``ops/mstep_kernels.py``).
+  (``ops/estep_kernels.py``) and K9 (``ops/mstep_kernels.py``);
+- the exact O(T) masked Kalman route for any per-coordinate missingness
+  past that gate: ``train(fast=True)`` and the fast multistart (one
+  candidate after another, or pooled under ``MTM_MASKED_POOL=1``), with
+  kernel K7 (``ops/kalman_kernels.py``; the filters in plain torch in
+  ``ops/kalman.py``).
 
 The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
 route raises ``NotImplementedError`` naming the ROADMAP item that will

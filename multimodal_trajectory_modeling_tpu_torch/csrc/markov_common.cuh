@@ -52,6 +52,13 @@ __device__ __forceinline__ double fused_ma(double a, double b, double c) {
   return fma(a, b, c);
 }
 
+// A product and a sum each rounded on its own: the compiler may not fuse
+// them into one multiply-add, so a kernel's sums equal plain torch's.
+__device__ __forceinline__ float mul_rn(float a, float b) { return __fmul_rn(a, b); }
+__device__ __forceinline__ double mul_rn(double a, double b) { return __dmul_rn(a, b); }
+__device__ __forceinline__ float add_rn(float a, float b) { return __fadd_rn(a, b); }
+__device__ __forceinline__ double add_rn(double a, double b) { return __dadd_rn(a, b); }
+
 
 // Sum over the block in a fixed order (shuffle tree, then warps in
 // order); the result is valid in thread 0.  `red` holds one V per warp;

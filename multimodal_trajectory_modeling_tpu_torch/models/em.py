@@ -19,14 +19,23 @@ trajectories): ``MixtureParams`` and the status codes (:93-118),
 ``assignments_from_logliks`` (:367), ``estep_assign_sorted`` (:382),
 ``mstep_sorted`` (:872), ``mstep`` (:920), ``complete_data_loglik``
 (:1028), ``model_loglik`` (:1047), ``train_em`` (:1261),
-``train_em_sorted`` (:1663) and ``train_em_multistart`` (:2762).
+``train_em_sorted`` (:1663) and ``train_em_multistart`` (:2762); and the
+masked-filter route: ``masked_logliks_kalman`` (:320),
+``complete_data_loglik_masked_kalman`` (:352), ``mstep_multi`` (:990),
+``train_em_masked_kalman`` (:1329), ``emstep_masked_kalman_multi``
+(:1445), ``_pool_window_masked_kalman`` (:1535) and
+``train_em_masked_kalman_pool`` (:1585).
 
-A Markov fit materializes the feature matrix Φ once (kernel K2), stores
-it int16 under float32 compute, and runs every iteration as one
-Φ-reading kernel (K1; K3 for R restarts at once) followed by small
-per-cluster solves; ``precompute=False`` rebuilds Φ from the packed batch
-in every iteration instead (K4a; K4b for R restarts).  The multistart
-objectives come from K4a/K4b on the wide packed batch.  The dense route
+A Markov fit materializes the feature matrix Φ once (kernel K2; past
+T·s = 512 the canonical Φ, K5), stores it int16 under float32 compute,
+and runs every iteration as one Φ-reading kernel (K1; K3 for R restarts
+at once) followed by small per-cluster solves; ``precompute=False``
+rebuilds Φ from the packed batch in every iteration instead (K4a; K4b
+for R restarts; at long T this needs the unported K6 and raises).  The
+multistart objectives come from K4a/K4b on the wide packed batch, or at
+long T from K3 on a wide canonical Φ.  The masked-filter route (any
+per-coordinate missingness, any T) runs one masked Kalman filter pass
+per E step (K7) and the plain-torch masked M step.  The dense route
 evaluates every instance's masked joint Gaussian: ``train_em`` in plain
 torch (one grouped log-density per cluster, time-batched statistics), and
 ``train_em_sorted`` over a batch sorted by missingness pattern through
@@ -54,6 +63,7 @@ from multimodal_trajectory_modeling_tpu_torch.device import (
 )
 from multimodal_trajectory_modeling_tpu_torch.ops import estep_kernels as ek
 from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
+from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov as mops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
 from multimodal_trajectory_modeling_tpu_torch.ops import moments as jmom
@@ -72,16 +82,20 @@ __all__ = [
     "complete_data_loglik",
     "complete_data_loglik_markov",
     "complete_data_loglik_markov_multi",
+    "complete_data_loglik_masked_kalman",
     "counts_from_assign",
     "emstep_markov",
     "emstep_markov_multi",
+    "emstep_masked_kalman_multi",
     "estep_assign_sorted",
     "estep_logliks",
     "markov_packed_ok",
+    "masked_logliks_kalman",
     "mixture_params_from_numpy",
     "mixture_params_to_numpy",
     "model_loglik",
     "mstep",
+    "mstep_multi",
     "mstep_sorted",
     "pack_joint",
     "pack_markov_batch",
@@ -91,6 +105,8 @@ __all__ = [
     "train_em_markov",
     "train_em_markov_multi",
     "train_em_markov_pool",
+    "train_em_masked_kalman",
+    "train_em_masked_kalman_pool",
     "train_em_multistart",
     "train_em_sorted",
     "unstack_params",
@@ -186,8 +202,8 @@ def pack_markov_features(
 
 
 def markov_packed_ok(T: int, d: int, l: int) -> bool:
-    """Whether the packed layout takes this shape (T·s ≤ 512); past it the
-    JAX package switches to its long-T kernels, not yet ported."""
+    """Whether the packed layout takes this shape (T·s ≤ 512); past it Φ
+    is materialized in the canonical layout (kernel K5)."""
     return T * 8 * ((d + l + 7) // 8) <= 512
 
 
@@ -226,36 +242,52 @@ def _markov_features(
     u: torch.Tensor | None = None,
     precompute: bool | None = None,
     phi_store: str = "env",
+    longT_always_phi: bool = False,
 ):
-    """The Φ routing of every Markov trainer (the packed branch of
-    ``em.py:614``): returns ``(u, phi)``, the packed batch (``u`` itself
-    if given) and, under ``precompute`` (default ``MTM_MARKOV_PRECOMP``,
-    on), the compact Φ, quantized under ``phi_store="i16"`` (``"env"``
-    resolves ``MTM_MARKOV_PHI``); else ``phi`` is None and every
-    iteration rebuilds Φ from ``u``.  ``phi`` is a tensor or a
-    :class:`~..ops.markov_kernels.PhiQuant`."""
+    """The Φ routing of every Markov trainer (``em.py:614``): returns
+    ``(u, phi, layout)``.  ``phi`` is a tensor or a
+    :class:`~..ops.markov_kernels.PhiQuant`, quantized under
+    ``phi_store="i16"`` (``"env"`` resolves ``MTM_MARKOV_PHI``).
+
+    - packed shapes (:func:`markov_packed_ok`): the packed batch (``u``
+      itself if given) and, under ``precompute`` (default
+      ``MTM_MARKOV_PRECOMP``, on), the compact Φ (K2); else ``phi`` is
+      None and every iteration rebuilds Φ from ``u``;
+    - long T: the canonical Φ (K5), no packed batch.  Without
+      ``precompute`` the single-restart trainer would run the grid-over-T
+      EM kernel K6, which is not ported: that raises.  The R-restart
+      callers pass ``longT_always_phi`` (their kernels have no such
+      mode)."""
     T, n, d = z.shape
     l = x.shape[-1]
-    if not markov_packed_ok(T, d, l):
-        raise NotImplementedError(
-            f"T·s = {T * 8 * ((d + l + 7) // 8)} > 512 needs the long-T "
-            "kernels (ROADMAP Queue 2, K5/K6)"
-        )
     if precompute is None:
         precompute = os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
     if phi_store == "env":
         phi_store = _resolve_phi_store(z.dtype)
-    if u is None:
+    z_t = x_t = None
+    if u is None or not markov_packed_ok(T, d, l):
         z_t = z.permute(0, 2, 1).reshape(T * d, n)
         x_t = x.permute(0, 2, 1).reshape(T * l, n)
-        u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
+    if markov_packed_ok(T, d, l):
+        if u is None:
+            u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
         del z_t, x_t
-    if not precompute:
-        return u, None
-    phi = pack_markov_features(u, lens, T=T, d=d, l=l)
+        if not precompute:
+            return u, None, "compact"
+        phi = pack_markov_features(u, lens, T=T, d=d, l=l)
+        layout = "compact"
+    else:
+        if not (precompute or longT_always_phi):
+            raise NotImplementedError(
+                f"MTM_MARKOV_PRECOMP=0 at T·s = {T * 8 * ((d + l + 7) // 8)} > 512 "
+                "runs the grid-over-T EM kernel K6, not ported (ROADMAP Queue 2)"
+            )
+        phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
+        del z_t, x_t
+        u, layout = None, "canonical"
     if phi_store == "i16":
         phi = mk.quantize_phi(phi)
-    return u, phi
+    return u, phi, layout
 
 
 def _weights(params: MixtureParams) -> torch.Tensor:
@@ -290,17 +322,19 @@ def emstep_markov(
     assign_mode: str = "argmax",
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
+    phi_layout: str = "compact",
 ):
     """One EM iteration: ``(new_params, assign, counts, switches)``, from
-    Φ (K1) or, without Φ, from the packed batch ``u`` (K4a).
-    ``assign_mode="prev"`` is the initial M step (statistics under
-    ``prev_assign``, no E step)."""
+    Φ in ``phi_layout`` (K1) or, without Φ, from the packed batch ``u``
+    (K4a).  ``assign_mode="prev"`` is the initial M step (statistics
+    under ``prev_assign``, no E step)."""
     d = params.m.shape[1]
     l = params.H.shape[2]
     Wg = _weights(params)
     if phi is not None:
         assign, counts, switches, g, _obj = mk.markov_em_from_features(
-            phi, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode
+            phi, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode,
+            layout=phi_layout,
         )
     elif u is not None:
         assign, counts, switches, g, _obj = mk.markov_em_fused_packed(
@@ -354,8 +388,9 @@ def train_em_markov(
        parameters kept); else take the new parameters.
 
     ``precompute`` (default ``MTM_MARKOV_PRECOMP``, on) materializes Φ
-    once (K2) and runs every iteration from it (K1); off, every iteration
-    rebuilds Φ from the packed batch (K4a).  Both give the same
+    once (K2; at long T the canonical Φ, K5) and runs every iteration
+    from it (K1); off, every iteration rebuilds Φ from the packed batch
+    (K4a; at long T this needs K6 and raises).  Both give the same
     trajectory in float64."""
     T = z.shape[0]
     C = params0.pi.shape[0]
@@ -363,7 +398,7 @@ def train_em_markov(
     lens = lens.to(torch.int32)
     if int(counts_from_assign(assign0, C).amin()) <= min_members:
         return params0, assign0, 0, STATUS_INIT_ABORT
-    u, phi = _markov_features(z, x, lens, precompute=precompute)
+    u, phi, layout = _markov_features(z, x, lens, precompute=precompute)
     if phi is not None:
         u = None  # Φ carries the iterations; free the packed batch
 
@@ -378,6 +413,7 @@ def train_em_markov(
             assign_mode=mode,
             reg_mode=reg_mode,
             alpha=alpha,
+            phi_layout=layout,
         )
 
     params = step(params0, assign0, "prev")[0]
@@ -406,13 +442,14 @@ def complete_data_loglik_markov(
 ) -> torch.Tensor:
     """The hard-assignment complete-data objective under a fresh E step,
     ``Σ_i max_c scores``, as a 0-d tensor: one K4a pass over the packed
-    batch (``em.py:1066``)."""
+    batch (``em.py:1066``).  At long T the JAX package runs the
+    grid-over-T kernel K6, not ported: that raises."""
     d = params.m.shape[1]
     l = params.H.shape[2]
     if not markov_packed_ok(T, d, l):
         raise NotImplementedError(
-            "the long-T objective needs the grid-over-T kernels (ROADMAP "
-            "Queue 2, K5/K6)"
+            "the long-T objective of the sequential multistart runs the "
+            "grid-over-T EM kernel K6, not ported (ROADMAP Queue 2)"
         )
     u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
     prev = torch.zeros(lens.shape, dtype=torch.int32, device=lens.device)
@@ -465,10 +502,12 @@ def emstep_markov_multi(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     phi=None,  # (Fc_pad, n) tensor or PhiQuant — shared
+    phi_layout: str = "compact",
 ):
     """One EM iteration for R independent restarts over one batch:
     ``(new_params, assign (R, n), counts (R, C), switches (R,), obj
-    (R,))``, from Φ (K3) or, without Φ, from the packed batch (K4b).
+    (R,))``, from Φ in ``phi_layout`` (K3) or, without Φ, from the packed
+    batch (K4b).
     ``force_prev`` puts single slots in prev mode for this pass (a pool
     insertion's initial M step).  The M solves of all R·C clusters run as
     one C-batched solve of R·C clusters (the JAX package ``vmap``s them)."""
@@ -479,7 +518,7 @@ def emstep_markov_multi(
     if phi is not None:
         assign, counts, switches, g, obj = mk.markov_em_from_features_multi(
             phi, lens, prev_assign, Wg, T=T, d=d, l=l,
-            assign_mode=assign_mode, force_prev=force_prev,
+            assign_mode=assign_mode, force_prev=force_prev, layout=phi_layout,
         )
     elif u is not None:
         assign, counts, switches, g, obj = mk.markov_em_fused_packed_multi(
@@ -525,12 +564,12 @@ def train_em_markov_multi(
     C = params0.pi.shape[1]
     assign0 = assign0.to(torch.int32)
     lens = lens.to(torch.int32)
-    u, phi = _markov_features(z, x, lens, u=u)
+    u, phi, layout = _markov_features(z, x, lens, u=u, longT_always_phi=True)
 
     def step(params, prev, mode):
         return emstep_markov_multi(
             params, lens, prev, u, T=T, assign_mode=mode, reg_mode=reg_mode,
-            alpha=alpha, phi=phi,
+            alpha=alpha, phi=phi, phi_layout=layout,
         )
 
     init_abort = _counts_rows(assign0, C).amin(dim=1) <= min_members
@@ -595,6 +634,7 @@ def _pool_window(
     reg_mode: str,
     alpha: float,
     min_members: int,
+    phi_layout: str = "compact",
 ):
     """K multi-restart EM passes with per-slot freezing and insertion:
     one K3 (or K4b) pass each, no host read (the JAX package runs them as
@@ -603,7 +643,7 @@ def _pool_window(
     def emstep_fn(params, assigns, force):
         return emstep_markov_multi(
             params, lens, assigns, u, T=T, force_prev=force,
-            reg_mode=reg_mode, alpha=alpha, phi=phi,
+            reg_mode=reg_mode, alpha=alpha, phi=phi, phi_layout=phi_layout,
         )[:4]
 
     return _pool_window_protocol(
@@ -739,7 +779,7 @@ def train_em_markov_pool(
     the results come back in candidate order: ``([(params, assign (n,)
     int32 tensor, iters, status), ...], PoolStats)``.  Φ is materialized
     once for the pool (``MTM_MARKOV_PRECOMP`` as in
-    :func:`train_em_markov`)."""
+    :func:`train_em_markov`; at long T always, in the canonical layout)."""
     if mesh is not None:
         raise NotImplementedError(
             "the data-parallel pool (mesh=) is not ported (ROADMAP Queue 1, "
@@ -750,7 +790,7 @@ def train_em_markov_pool(
     R = max(1, min(R, len(params_list)))
     K = max(1, int(sync_every))
     lens = lens.to(torch.int32)
-    u, phi = _markov_features(z, x, lens, u=u)
+    u, phi, layout = _markov_features(z, x, lens, u=u, longT_always_phi=True)
     if phi is not None:
         u = None  # Φ carries the passes
 
@@ -758,6 +798,7 @@ def train_em_markov_pool(
         return _pool_window(
             *state, lens, u, phi, T=T, K=K, n_steps=n_steps,
             reg_mode=reg_mode, alpha=float(alpha), min_members=min_members,
+            phi_layout=layout,
         )
 
     if z.device.type == "cuda":
@@ -779,16 +820,20 @@ def complete_data_loglik_markov_multi(
     *,
     T: int,
     phi=None,  # Φ tensor or PhiQuant
+    phi_layout: str = "compact",
 ) -> torch.Tensor:
     """Per-restart objectives ``Σ_i max_c scores`` ``(R,)`` in one kernel
-    pass: K4b over the packed batch, or K3 over Φ (``em.py:2704``)."""
+    pass: K4b over the packed batch, or K3 over Φ in ``phi_layout``
+    (``em.py:2704``; the only route at long T, from the canonical Φ)."""
     R = params.pi.shape[0]
     d = params.m.shape[2]
     l = params.H.shape[3]
     Wg = _stacked_weights(params)
     prev = torch.zeros((R, lens.shape[0]), dtype=torch.int32, device=lens.device)
     if phi is not None:
-        return mk.markov_em_from_features_multi(phi, lens, prev, Wg, T=T, d=d, l=l)[4]
+        return mk.markov_em_from_features_multi(
+            phi, lens, prev, Wg, T=T, d=d, l=l, layout=phi_layout
+        )[4]
     return mk.markov_em_fused_packed_multi(u, lens, prev, Wg, T=T, d=d, l=l)[4]
 
 
@@ -882,14 +927,28 @@ def mstep(
     return MixtureParams(pi, m0, S0, A, G, H, L)
 
 
+def _hard_objective(pi: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+    """``Σ_i (log π_a + ll_a)`` under the fresh assignment ``a`` of the
+    ``(C, n)`` log-likelihoods ``ll``, as a 0-d tensor."""
+    a = assignments_from_logliks(pi, ll).long()
+    return torch.log(pi)[a].sum() + ll.gather(0, a[None])[0].sum()
+
+
+def _hard_estep(pi: torch.Tensor, ll: torch.Tensor, prev: torch.Tensor, C: int):
+    """``(assign, counts, switches)`` of the dense trainers' E step from
+    the ``(C, n)`` log-likelihoods."""
+    a = assignments_from_logliks(pi, ll)
+    return a, counts_from_assign(a, C), (a != prev).sum()
+
+
 def complete_data_loglik(
     params: MixtureParams, v, patterns, pattern_id, *, T: int, method: str = "auto"
 ) -> torch.Tensor:
     """The hard-assignment complete-data objective under a fresh E step,
     ``Σ_i (log π_a + ll_a)``, as a 0-d tensor (``em.py:1028``)."""
-    ll = estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
-    a = assignments_from_logliks(params.pi, ll).long()
-    return torch.log(params.pi)[a].sum() + ll.gather(0, a[None])[0].sum()
+    return _hard_objective(
+        params.pi, estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
+    )
 
 
 def model_loglik(
@@ -952,8 +1011,7 @@ def train_em(
 
     def estep_fn(params, prev):
         ll = estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
-        a = assignments_from_logliks(params.pi, ll)
-        return a, counts_from_assign(a, C), (a != prev).sum()
+        return _hard_estep(params.pi, ll, prev, C)
 
     def mstep_fn(a):
         return mstep(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
@@ -1082,3 +1140,209 @@ def train_em_sorted(
     return _dense_loop(
         params0, assign0, C, estep_fn, mstep_fn, n_steps=n_steps, min_members=min_members
     )
+
+
+# ----------------------------------------------------------------------
+# The masked-filter route
+# ----------------------------------------------------------------------
+
+
+def _filter_logliks(params: MixtureParams, packed) -> torch.Tensor:
+    """``(C, n)`` masked-filter log-densities of the packed batch (K7)."""
+    return kk.kalman_masked_logliks_packed(
+        *packed, params.m, params.S, params.A, params.G, params.H, params.L
+    )
+
+
+def masked_logliks_kalman(
+    params: MixtureParams,
+    z: torch.Tensor,  # (T, n, d) arbitrary per-coordinate NaNs
+    x: torch.Tensor,  # (T, n, l)
+) -> torch.Tensor:
+    """``(C, n)`` log-likelihoods of the observed entries under arbitrary
+    missingness through the O(T) masked filter (``em.py:320``): kernel K7
+    for CUDA tensors, its plain version for CPU tensors."""
+    return _filter_logliks(params, kk.pack_masked_kalman(z, x))
+
+
+def complete_data_loglik_masked_kalman(
+    params: MixtureParams,
+    z: torch.Tensor,  # (T, n, d)
+    x: torch.Tensor,  # (T, n, l)
+    *,
+    packed=None,  # (zp, xp) from pack_masked_kalman, to skip the packing
+) -> torch.Tensor:
+    """The hard-assignment complete-data objective under a fresh E step
+    through the masked filter, as a 0-d tensor (``em.py:352``)."""
+    if packed is None:
+        packed = kk.pack_masked_kalman(z, x)
+    return _hard_objective(params.pi, _filter_logliks(params, packed))
+
+
+def train_em_masked_kalman(
+    params0: MixtureParams,
+    assign0: torch.Tensor,  # (n,) int
+    z: torch.Tensor,  # (T, n, d) arbitrary per-coordinate NaNs
+    x: torch.Tensor,  # (T, n, l)
+    *,
+    n_steps: int = 1000,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    min_members: int = 3,
+    packed=None,  # (zp, xp) from pack_masked_kalman, to skip the packing
+):
+    """Hard EM under arbitrary per-coordinate missingness with an O(T) E
+    step (``em.py:1329``): ``(params, assign, iterations, status)``.  The
+    batch is packed for K7 once per fit; each iteration is one K7 pass,
+    the assignment, counts and switches, one status read, and the masked
+    M step :func:`mstep` (plain torch).  The status protocol is
+    :func:`train_em`'s; on suffix missingness the trajectory is
+    :func:`train_em`'s too (the filter marginal is the joint marginal)."""
+    C = params0.pi.shape[0]
+    if packed is None:
+        packed = kk.pack_masked_kalman(z, x)
+
+    def estep_fn(params, prev):
+        return _hard_estep(params.pi, _filter_logliks(params, packed), prev, C)
+
+    def mstep_fn(a):
+        return mstep(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
+
+    return _dense_loop(
+        params0, assign0, C, estep_fn, mstep_fn, n_steps=n_steps, min_members=min_members
+    )
+
+
+def mstep_multi(
+    z: torch.Tensor,  # (T, n, d)
+    x: torch.Tensor,  # (T, n, l)
+    assign: torch.Tensor,  # (R, n) int — one hard assignment per restart
+    *,
+    n_clusters: int,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+) -> MixtureParams:
+    """:func:`mstep` for R assignments in one read of the batch
+    (``em.py:990``): the per-restart memberships concatenate on the
+    cluster axis ``(n, R·C)`` and the solves run on R·C clusters.  Rows
+    assigned ``-1`` (idle pool slots) count in no cluster."""
+    R, n = assign.shape
+    C = n_clusters
+    lanes = torch.arange(C, dtype=assign.dtype, device=assign.device)
+    W = (assign[:, :, None] == lanes).to(z.dtype)  # (R, n, C)
+    W = W.permute(1, 0, 2).reshape(n, R * C)
+    pi = W.mean(0).reshape(R, C)
+    m0, S0 = rops.masked_mean_and_cov(z[0], W)
+    A, G = rops.solve_regression(
+        rops.weighted_regression_stats_timebatched(z[:-1], z[1:], W), mode=reg_mode, alpha=alpha
+    )
+    H, L = rops.solve_regression(
+        rops.weighted_regression_stats_timebatched(z, x, W), mode=reg_mode, alpha=alpha
+    )
+    return MixtureParams(pi, *(a.reshape(R, C, *a.shape[1:]) for a in (m0, S0, A, G, H, L)))
+
+
+def emstep_masked_kalman_multi(
+    params: MixtureParams,  # leading R axis on every leaf
+    z: torch.Tensor,  # (T, n, d) — shared
+    x: torch.Tensor,  # (T, n, l)
+    prev: torch.Tensor,  # (R, n) int32
+    *,
+    force_prev=None,  # (R,) — 1 ⇒ the slot keeps prev (its initial M step)
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    packed=None,  # (zp, xp) from pack_masked_kalman — shared
+):
+    """One masked-filter EM iteration for R restarts over one batch
+    (``em.py:1445``): ``(new_params, assign (R, n), counts (R, C),
+    switches (R,))``.  The R·C parameter rows go through one K7 pass; the
+    M steps of all restarts through :func:`mstep_multi`."""
+    R, C = params.pi.shape
+    n = z.shape[1]
+    if packed is None:
+        packed = kk.pack_masked_kalman(z, x)
+    flat = MixtureParams(*(p.reshape(R * C, *p.shape[2:]) for p in params))
+    ll = _filter_logliks(flat, packed).reshape(R, C, n)
+    scores = torch.log(params.pi)[:, :, None] + ll
+    e_assign = mk._argmax_first(scores.permute(1, 0, 2).reshape(C, R * n))[1].reshape(R, n)
+    if force_prev is not None:
+        e_assign = torch.where((force_prev > 0)[:, None], prev, e_assign)
+    switches = (e_assign != prev).sum(1)
+    counts = _counts_rows(e_assign, C)
+    new_params = mstep_multi(z, x, e_assign, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
+    return new_params, e_assign, counts, switches
+
+
+def _pool_window_masked_kalman(
+    params,  # R-stacked MixtureParams
+    assigns,  # (R, n) int32
+    status,  # (R,) int32
+    iters,  # (R,) int32
+    force,  # (R,) int32
+    z,
+    x,
+    packed,
+    *,
+    K: int,
+    n_steps: int,
+    reg_mode: str,
+    alpha: float,
+    min_members: int,
+):
+    """K masked-filter pool passes (``em.py:1535``): the
+    :func:`_pool_window_protocol` of the Markov pool on
+    :func:`emstep_masked_kalman_multi`."""
+
+    def emstep_fn(params, assigns, force):
+        return emstep_masked_kalman_multi(
+            params, z, x, assigns, force_prev=force, reg_mode=reg_mode, alpha=alpha,
+            packed=packed,
+        )
+
+    return _pool_window_protocol(
+        emstep_fn, K, (params, assigns, status, iters, force),
+        n_steps=n_steps, min_members=min_members,
+    )
+
+
+def train_em_masked_kalman_pool(
+    params_list,  # per-candidate MixtureParams on the batch's device
+    assign_list,  # per-candidate (n,) int assignments (numpy or tensors)
+    z: torch.Tensor,  # (T, n, d) arbitrary per-coordinate NaNs — shared
+    x: torch.Tensor,  # (T, n, l)
+    *,
+    R: int = 8,
+    n_steps: int = 1000,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    min_members: int = 3,
+    sync_every: int = 8,
+    packed=None,  # (zp, xp) from pack_masked_kalman
+) -> tuple[list, PoolStats]:
+    """Slot-pool multistart on the masked-filter trainer (``em.py:1585``;
+    opt-in, ``MTM_MASKED_POOL=1``): the scheduler of
+    :func:`train_em_markov_pool`, R slots sharing one K7 pass of R·C
+    parameter rows per iteration.  Each candidate's result equals a
+    standalone :func:`train_em_masked_kalman` run; returns ``([(params,
+    assign (n,), iters, status), ...], PoolStats)`` in candidate order."""
+    n = z.shape[1]
+    C = params_list[0].pi.shape[0]
+    R = max(1, min(R, len(params_list)))
+    K = max(1, int(sync_every))
+    if packed is None:
+        packed = kk.pack_masked_kalman(z, x)
+
+    def window(*state):
+        return _pool_window_masked_kalman(
+            *state, z, x, packed, K=K, n_steps=n_steps, reg_mode=reg_mode,
+            alpha=float(alpha), min_members=min_members,
+        )
+
+    if z.device.type == "cuda":
+        torch.cuda.synchronize(z.device)
+    t0 = time.perf_counter()
+    results, windows, reads = _run_slot_pool(
+        window, params_list, assign_list, R=R, C=C, n=n, n_steps=n_steps,
+        min_members=min_members, device=z.device,
+    )
+    return results, PoolStats(windows, reads, time.perf_counter() - t0)

@@ -7,8 +7,9 @@ per-instance suffix gate (:238), ``_packed`` (:261), the
 ``correspondence`` property (:334-346), the gzip-pickle cache
 (``to_pickle``/``from_pickle``, :348-425), ``train`` (:803-921) and
 ``train_with_multiple_random_starts`` (:1012-1472), on the Markov route
-(suffix missingness) and the dense joint route (any missingness within
-its size gate).
+(suffix missingness, any T), the dense joint route (any missingness
+within its size gate) and the masked-filter route (any missingness past
+it).
 
 The suffix gate is taken per instance, before the joint batch is packed,
 so the Markov route never packs it; it is the same gate as the JAX
@@ -47,6 +48,8 @@ from multimodal_trajectory_modeling_tpu_torch.device import (
 from multimodal_trajectory_modeling_tpu_torch.models import em
 from multimodal_trajectory_modeling_tpu_torch.models.kmeans import kmeans_labels
 from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
+from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
+from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
 
 np_eps = np.finfo(float).eps
 
@@ -287,18 +290,34 @@ class MMLinGaussSS_marginalizable:
             )
         return self._packed_cache
 
+    def _takes_masked_filter_route(self) -> bool:
+        """:meth:`_needs_masked_filter_route` for this model's data.  Past
+        T(d+l) = 512 the width decides alone, so the joint batch is
+        neither packed nor grouped into patterns (it would be ~1 GB on the
+        card at T=128, n=2.5e5); else the pattern count of
+        :meth:`_packed` decides."""
+        T = self.n_timesteps
+        if self._needs_masked_filter_route(T, 0):
+            return True
+        return self._needs_masked_filter_route(T, self._packed()[3].shape[0])
+
+    def _masked_batch(self):
+        """``(z, x)`` on ``device`` for the masked-filter route (from
+        :meth:`_packed` when it exists, so the batch is not copied
+        twice)."""
+        if self._packed_cache is not None:
+            return self._packed_cache[:2]
+        return tuple(
+            torch.as_tensor(a, dtype=self.dtype, device=self.device)
+            for a in (self.states, self.observations)
+        )
+
     def _sorted_batch(self):
         """The packed data sorted by missingness pattern for
         :func:`em.train_em_sorted`: ``(order, sizes, z, x, v, patterns,
         pattern_id)``, rows in ``order`` (an (n,) index tensor on
-        ``device``); raises for the masked-filter route."""
+        ``device``)."""
         z, x, v, patterns, pid = self._packed()
-        if self._needs_masked_filter_route(self.n_timesteps, patterns.shape[0]):
-            raise NotImplementedError(
-                f"{patterns.shape[0]} missingness patterns at T(d+l) = "
-                f"{v.shape[1]}: past 256 patterns or 512 the fast route is the "
-                "masked Kalman filter, not ported (ROADMAP Queue 1, item 7)"
-            )
         order = np.argsort(pid, kind="stable")
         sizes = tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0]))
         pid_s = torch.as_tensor(pid[order], device=self.device)
@@ -449,12 +468,15 @@ class MMLinGaussSS_marginalizable:
 
         ``fast=False`` runs the dense joint route :func:`em.train_em` (plain
         torch).  ``fast=True`` takes, on suffix-only missingness (variable
-        trajectory lengths), the Markov route :func:`em.train_em_markov`;
-        on any other missingness with at most 256 patterns and T(d+l) ≤ 512
-        the pattern-sorted dense route :func:`em.train_em_sorted` (kernels
-        K8 and K9), whose sort is undone on return.  ``verbose=True``,
-        ``MTM_MARKOV_OOC=1`` and the masked-filter route past that size
-        gate raise ``NotImplementedError``."""
+        trajectory lengths), the Markov route :func:`em.train_em_markov`
+        (K2 or, past T·s = 512, K5 once, then K1 per iteration); on any
+        other missingness past 256 patterns or T(d+l) = 512 the exact O(T)
+        masked-filter route :func:`em.train_em_masked_kalman` (K7 per E
+        step); else the pattern-sorted dense route
+        :func:`em.train_em_sorted` (kernels K8 and K9), whose sort is
+        undone on return.  ``verbose=True``, ``MTM_MARKOV_OOC=1`` and
+        ``MTM_MARKOV_PRECOMP=0`` at long T raise
+        ``NotImplementedError``."""
         if verbose:
             raise NotImplementedError(
                 "train(verbose=True), the host-stepped loop, is not ported "
@@ -481,6 +503,10 @@ class MMLinGaussSS_marginalizable:
                 on_device(self.observations, self.dtype),
                 on_device(lens, torch.int32),
                 **fit,
+            )
+        elif fast and self._takes_masked_filter_route():
+            params, assign, iters, status = em.train_em_masked_kalman(
+                self._stacked_params(), assign0, *self._masked_batch(), **fit
             )
         elif fast:
             order, sizes, z, x, v, patterns, _pid = self._sorted_batch()
@@ -549,9 +575,18 @@ class MMLinGaussSS_marginalizable:
 
         - ``fast=True`` on suffix missingness: the slot pool
           (:func:`em.train_em_markov_pool`, ``MTM_MULTISTART_FUSE`` slots,
-          default 32) with objectives from K4b in pool-sized groups, or,
-          with one candidate or ``MTM_MULTISTART_FUSE`` ≤ 1, one after
-          another (:func:`em.train_em_markov`, objectives from K4a);
+          default 32) with objectives from K4b in pool-sized groups (past
+          T·s = 512: the pool on the canonical Φ, objectives from K3 on a
+          wide canonical Φ), or, with one candidate or
+          ``MTM_MULTISTART_FUSE`` ≤ 1, one after another
+          (:func:`em.train_em_markov`, objectives from K4a; at long T
+          those need the unported K6 and raise);
+        - ``fast=True`` on other missingness past 256 patterns or
+          T(d+l) = 512: one after another through
+          :func:`em.train_em_masked_kalman`, or with ``MTM_MASKED_POOL=1``
+          through :func:`em.train_em_masked_kalman_pool`
+          (``MTM_MULTISTART_FUSE`` slots), objectives from
+          :func:`em.complete_data_loglik_masked_kalman`;
         - ``fast=True`` on other missingness: one after another through
           the pattern-sorted :func:`em.train_em_sorted`, objectives from
           :func:`em.complete_data_loglik`;
@@ -567,7 +602,7 @@ class MMLinGaussSS_marginalizable:
         and status, and the pool's :class:`em.PoolStats` (None off the
         pool).
 
-        ``verbose=True``, the masked-filter route, long T on the Markov
+        ``verbose=True``, the sequential branch at long T on the Markov
         route and ``MTM_MULTICHIP=1`` on several cards raise
         ``NotImplementedError``."""
         if verbose:
@@ -585,10 +620,11 @@ class MMLinGaussSS_marginalizable:
         T, d, l = self.n_timesteps, self.d_states, self.d_observations
         r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
         pooled = lens is not None and r_fuse > 1 and n_starts > 0
-        if lens is not None and not em.markov_packed_ok(T, d, l):
+        packed_ok = em.markov_packed_ok(T, d, l)
+        if lens is not None and not pooled and not packed_ok:
             raise NotImplementedError(
-                "long-T multistart needs the grid-over-T kernels (ROADMAP "
-                "Queue 2, K5/K6)"
+                "the sequential long-T multistart scores its candidates with "
+                "the grid-over-T EM kernel K6, not ported (ROADMAP Queue 2)"
             )
         if (
             pooled
@@ -600,7 +636,8 @@ class MMLinGaussSS_marginalizable:
                 "the data-parallel pool (MTM_MULTICHIP=1) is not ported "
                 "(ROADMAP Queue 1, item 9)"
             )
-        sorted_batch = self._sorted_batch() if fast and lens is None else None
+        masked = fast and lens is None and self._takes_masked_filter_route()
+        sorted_batch = self._sorted_batch() if fast and lens is None and not masked else None
 
         t0 = time.perf_counter()
         candidates = [self._candidate(0, "kmeans")]
@@ -621,7 +658,14 @@ class MMLinGaussSS_marginalizable:
             z_t = z.permute(0, 2, 1).reshape(T * d, n)
             x_t = x.permute(0, 2, 1).reshape(T * l, n)
         if pooled:
-            u = em.pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
+            if packed_ok:
+                u, phi_obj = em.pack_markov_batch(z_t, x_t, T=T, d=d, l=l), None
+            else:
+                # long T: the pool trains from the canonical Φ, and the
+                # objectives rank on one wide canonical Φ
+                # (mixture.py:1165-1186)
+                u = None
+                phi_obj = mk.markov_materialize_features_longT(z_t, x_t, lens_d, T=T, d=d, l=l)
             del z_t, x_t
             results, pool_stats = em.train_em_markov_pool(
                 [c._stacked_params() for c in candidates],
@@ -637,7 +681,10 @@ class MMLinGaussSS_marginalizable:
             objectives = []
             for i0 in range(0, len(results), r_fuse):
                 grp = em.stack_params([p for p, *_ in results[i0 : i0 + r_fuse]])
-                objs = em.complete_data_loglik_markov_multi(grp, lens_d, u, T=T)
+                objs = em.complete_data_loglik_markov_multi(
+                    grp, lens_d, u, T=T, phi=phi_obj,
+                    phi_layout="compact" if packed_ok else "canonical",
+                )
                 objectives += objs.cpu().tolist()
         elif lens is not None:
             results, objectives = [], []
@@ -654,6 +701,27 @@ class MMLinGaussSS_marginalizable:
                 objectives.append(
                     float(em.complete_data_loglik_markov(res[0], z_t, x_t, lens_d, T=T))
                 )
+        elif masked:
+            z, x = self._masked_batch()
+            packed = kk.pack_masked_kalman(z, x)
+            if os.environ.get("MTM_MASKED_POOL", "0") == "1" and r_fuse > 1 and n_starts > 0:
+                results, pool_stats = em.train_em_masked_kalman_pool(
+                    [c._stacked_params() for c in candidates],
+                    [np.asarray(c.cluster_assignment) for c in candidates],
+                    z, x, R=r_fuse, packed=packed, **fit,
+                )
+            else:
+                results = [
+                    em.train_em_masked_kalman(
+                        c._stacked_params(), on_device(c.cluster_assignment, torch.int32),
+                        z, x, packed=packed, **fit,
+                    )
+                    for c in candidates
+                ]
+            objectives = [
+                float(em.complete_data_loglik_masked_kalman(p, z, x, packed=packed))
+                for p, *_ in results
+            ]
         elif fast:
             order, sizes, z, x, v, patterns, pid = sorted_batch
             results, objectives = [], []

@@ -54,6 +54,10 @@ _SIGNATURES = {
     ],
     "mtm_mstep_gram_padded": [_I],
     "mtm_mstep_gram": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mtm_masked_kalman_max_dim": [],
+    "mtm_masked_kalman": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "mtm_markov_features_longT_max_dim": [],
+    "mtm_markov_features_longT": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
 }
 
 

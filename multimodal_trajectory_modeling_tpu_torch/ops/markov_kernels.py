@@ -1,12 +1,14 @@
-"""Markov EM kernels: Φ materialization (K2), the Φ-reading EM iteration
-for one restart (K1) and for R restarts (K3), and the EM iteration that
-rebuilds Φ from the packed batch on every call, for one restart (K4a) and
-for R restarts (K4b).
+"""Markov EM kernels: Φ materialization (K2; K5 at any T), the Φ-reading
+EM iteration for one restart (K1) and for R restarts (K3), and the EM
+iteration that rebuilds Φ from the packed batch on every call, for one
+restart (K4a) and for R restarts (K4b).
 
 Counterpart of ``multimodal_trajectory_modeling_tpu/ops/pallas_markov.py``,
 whose Pallas TPU kernels become hand-written CUDA kernels:
 
 - K2 ``markov_materialize_features`` (:1314) → ``csrc/markov_features.cu``;
+- K5 ``markov_materialize_features_longT`` (:1842) →
+  ``csrc/markov_features_longT.cu``;
 - K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em.cu``;
 - K3 ``markov_em_from_features_multi`` (:1658), K4a
   ``markov_em_fused_packed`` (:727) and K4b
@@ -23,6 +25,11 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
   rows.  The index arrays are identical to the JAX package's.  Unlike
   there, the instance axis is not padded: the kernels mask the ragged
   edge.
+- Layouts of Φ (``_feature_layout``): ``"compact"``, the referenced ACC
+  rows of the packed batch (K2, T·s ≤ 512), and ``"canonical"``, the
+  g-layout rows themselves (K5, any T); K1 and K3 read either, their
+  weights folded and their statistics unfolded through the layout's
+  feature → row map.
 - Storage (``PhiQuant``, ``quantize_phi``): Φ may be stored int16 with one
   scale per row; the scales fold into the score weights and unfold from
   the statistics, so K1 and K3 read half the bytes.
@@ -63,6 +70,8 @@ __all__ = [
     "markov_em_fused_packed_multi_plain",
     "markov_em_fused_packed_plain",
     "markov_materialize_features",
+    "markov_materialize_features_longT",
+    "markov_materialize_features_longT_plain",
     "markov_materialize_features_plain",
     "markov_packed_spec",
     "pack_markov_u",
@@ -155,25 +164,44 @@ def markov_compact_spec(T: int, d: int, l: int):
     return Fc_pad, uniq, pos
 
 
+def _canonical_offsets(d: int, l: int) -> dict:
+    """First row of each g-layout group in the canonical Φ, and ``F``
+    (``pallas_markov.py:1775-1785``)."""
+    dd = d * d
+    o = {"g1": 0, "g2": dd, "g3": 2 * dd, "g4": 3 * dd}
+    o["g5"] = o["g4"] + l * l
+    o["g6"] = o["g5"] + d * l
+    o["g7"] = o["g6"] + dd
+    o["g8"] = o["g7"] + d
+    o["g9"] = o["g8"] + d
+    o["g10"] = o["g9"] + l
+    o["len"] = o["g10"] + d
+    o["one"] = o["len"] + 1
+    o["F"] = o["one"] + 1
+    return o
+
+
 def _feature_layout(T: int, d: int, l: int, layout: str):
     """(padded row count, g-layout feature → Φ row) for a Φ layout
-    (``pallas_markov.py:1281``)."""
+    (``pallas_markov.py:1281``): the compact rows of K2, or the canonical
+    rows of K5, ``F = 4d²+l²+dl+2d+l+d+2`` padded to 8 (144 at d=5,
+    l=3)."""
     if layout == "compact":
         Fc_pad, _uniq, pos = markov_compact_spec(T, d, l)
         return Fc_pad, pos
     if layout == "canonical":
-        raise NotImplementedError(
-            "the canonical Φ layout comes with the long-T materializer "
-            "(ROADMAP Queue 2, K5)"
-        )
+        F = _canonical_offsets(d, l)["F"]
+        return 8 * ((F + 7) // 8), np.arange(F, dtype=np.int64)
     raise ValueError(f"unknown Φ layout {layout!r}")
 
 
 @functools.lru_cache(maxsize=None)
-def _positions(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
-    """``pos`` of :func:`markov_compact_spec` as a tensor on ``device``
-    (read by every EM iteration; copied to the device once)."""
-    return torch.as_tensor(_feature_layout(T, d, l, "compact")[1], device=device)
+def _positions(
+    T: int, d: int, l: int, device: torch.device, layout: str = "compact"
+) -> torch.Tensor:
+    """``pos`` of :func:`_feature_layout` as a tensor on ``device`` (read
+    by every EM iteration; copied to the device once)."""
+    return torch.as_tensor(_feature_layout(T, d, l, layout)[1], device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -403,6 +431,126 @@ def markov_materialize_features(
 markov_materialize_features.launches = 0
 
 # ----------------------------------------------------------------------
+# K5: canonical Φ at any T
+# ----------------------------------------------------------------------
+
+
+def _check_longT_args(z_t, x_t, lens, T, d, l):
+    if z_t.ndim != 2 or z_t.shape[0] != T * d:
+        raise ValueError(f"z_t must be (T·d, n) = ({T * d}, n), got {tuple(z_t.shape)}")
+    n = z_t.shape[1]
+    if x_t.shape != (T * l, n) or lens.shape != (n,):
+        raise ValueError(
+            f"x_t must be ({T * l}, {n}) and lens ({n},), got {tuple(x_t.shape)}, "
+            f"{tuple(lens.shape)}"
+        )
+    if not (z_t.device == x_t.device == lens.device):
+        raise ValueError("z_t, x_t and lens must be on one device")
+
+
+def markov_materialize_features_longT_plain(
+    z_t: torch.Tensor, x_t: torch.Tensor, lens: torch.Tensor, *, T: int, d: int, l: int
+) -> torch.Tensor:
+    """Plain torch version of :func:`markov_materialize_features_longT`:
+    the TPU kernel's per-step accumulation (``pallas_markov.py:1763``),
+    the steps added in order."""
+    _check_longT_args(z_t, x_t, lens, T, d, l)
+    n, dtype = z_t.shape[1], z_t.dtype
+    F_pad, _pos = _feature_layout(T, d, l, "canonical")
+    o = _canonical_offsets(d, l)
+    z3, x3 = z_t.reshape(T, d, n), x_t.reshape(T, l, n)
+    acc = torch.zeros((F_pad, n), dtype=dtype, device=z_t.device)
+
+    def fin(a):
+        return torch.where(torch.isfinite(a), a, 0.0)
+
+    def kron(a, b):  # row i·len(b) + j = a_i · b_j
+        return (a[:, None, :] * b[None, :, :]).reshape(-1, n)
+
+    def rows(g, k):
+        return slice(o[g], o[g] + k)
+
+    for t in range(T):
+        zc, zn, xc = fin(z3[t]), fin(z3[min(t + 1, T - 1)]), fin(x3[t])
+        vm = ((lens > t + 1) & (t < T - 1)).to(dtype)[None, :]
+        zz = kron(zc, zc)
+        acc[rows("g1", d * d)] += zz
+        acc[rows("g2", d * d)] += vm * zz
+        acc[rows("g3", d * d)] += kron(zc, zn * vm)
+        acc[rows("g4", l * l)] += kron(xc, xc)
+        acc[rows("g5", d * l)] += kron(zc, xc)
+        acc[rows("g7", d)] += vm * zc
+        acc[rows("g8", d)] += zc
+        acc[rows("g9", l)] += xc
+        if t == 0:
+            acc[rows("g6", d * d)] += zz
+            acc[rows("g10", d)] += zc
+            acc[rows("len", 1)] += lens.to(dtype)[None, :]
+            acc[rows("one", 1)] += 1.0
+    return acc
+
+
+def markov_materialize_features_longT(
+    z_t: torch.Tensor,  # (T·d, n) transposed latent batch (NaN-padded)
+    x_t: torch.Tensor,  # (T·l, n)
+    lens: torch.Tensor,  # (n,) int32
+    *,
+    T: int,
+    d: int,
+    l: int,
+) -> torch.Tensor:
+    """K5: the per-instance Markov EM features Φ (F_pad, n) in the
+    canonical layout, for any T, in z_t's dtype; once per fit
+    (``pallas_markov.py:1842``).  K1 and K3 then run every iteration from
+    it at a cost independent of T.  CUDA tensors launch
+    ``csrc/markov_features_longT.cu`` (float32 or float64, contiguous,
+    int32 lens, d and l up to 8; bit-identical to the plain version); CPU
+    tensors take the plain version."""
+    _check_longT_args(z_t, x_t, lens, T, d, l)
+    if z_t.device.type == "cpu":
+        return markov_materialize_features_longT_plain(z_t, x_t, lens, T=T, d=d, l=l)
+    if z_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {z_t.device}")
+    kinds = {torch.float32: 0, torch.float64: 1}
+    if z_t.dtype not in kinds or x_t.dtype != z_t.dtype:
+        raise ValueError(f"z_t and x_t must share float32 or float64, got {z_t.dtype}, {x_t.dtype}")
+    if lens.dtype != torch.int32:
+        raise ValueError(f"lens must be int32, got {lens.dtype}")
+    if not (z_t.is_contiguous() and x_t.is_contiguous() and lens.is_contiguous()):
+        raise ValueError("z_t, x_t and lens must be contiguous")
+    n = z_t.shape[1]
+    if n == 0:
+        raise ValueError("empty batch")
+    lib = _build.library()
+    if max(d, l) > lib.mtm_markov_features_longT_max_dim():
+        raise ValueError(
+            f"d={d}, l={l}: the long-T feature kernel takes at most "
+            f"{lib.mtm_markov_features_longT_max_dim()} of each"
+        )
+    F_pad = _feature_layout(T, d, l, "canonical")[0]
+    phi = torch.empty((F_pad, n), dtype=z_t.dtype, device=z_t.device)
+    rc = lib.mtm_markov_features_longT(
+        _device_index(z_t),
+        kinds[z_t.dtype],
+        z_t.data_ptr(),
+        x_t.data_ptr(),
+        lens.data_ptr(),
+        phi.data_ptr(),
+        n,
+        T,
+        d,
+        l,
+        F_pad,
+        torch.cuda.current_stream(z_t.device).cuda_stream,
+    )
+    _build.check(rc, "markov_materialize_features_longT")
+    markov_materialize_features_longT.launches += 1
+    return phi
+
+
+markov_materialize_features_longT.launches = 0
+
+# ----------------------------------------------------------------------
 # K1: one EM iteration over Φ
 # ----------------------------------------------------------------------
 
@@ -588,12 +736,12 @@ markov_em_compact.launches = 0
 
 
 def fold_weights(
-    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None
+    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None, layout: str = "compact"
 ) -> torch.Tensor:
     """K1's weights ``wc (C, Fc_pad)`` from the g-layout ``Wg (C, F)``:
     features that share a Φ row add up, and int16 ``scale`` folds in."""
-    pos = _positions(T, d, l, Wg.device)
-    Fc_pad = markov_compact_spec(T, d, l)[0]
+    pos = _positions(T, d, l, Wg.device, layout)
+    Fc_pad = _feature_layout(T, d, l, layout)[0]
     wc = torch.zeros((Wg.shape[0], Fc_pad), dtype=Wg.dtype, device=Wg.device)
     wc.index_add_(1, pos, Wg)
     if scale is not None:
@@ -610,17 +758,18 @@ def markov_em_from_features(
     d: int,
     l: int,
     assign_mode: str = "argmax",
+    layout: str = "compact",
 ):
     """One EM iteration over Φ with the contract of
     ``pallas_markov.py:1464``: ``(assign, counts, switches, g (F, C),
-    obj)``.  Folds ``Wg`` into the compact layout (and the int16 scales),
-    runs K1 (:func:`markov_em_compact`) and unfolds its statistics into
-    the g-layout."""
+    obj)``.  Folds ``Wg`` into Φ's ``layout`` (and the int16 scales), runs
+    K1 (:func:`markov_em_compact`) and unfolds its statistics into the
+    g-layout."""
     scale = None
     if isinstance(phi, PhiQuant):
         phi, scale = phi.q, phi.scale
-    pos = _positions(T, d, l, Wg.device)
-    wc = fold_weights(Wg, T=T, d=d, l=l, scale=scale)
+    pos = _positions(T, d, l, Wg.device, layout)
+    wc = fold_weights(Wg, T=T, d=d, l=l, scale=scale, layout=layout)
     assign, counts, switches, macc, obj = markov_em_compact(
         phi, prev_assign, wc, assign_mode=assign_mode
     )
@@ -778,14 +927,14 @@ markov_em_compact_multi.launches = 0
 
 
 def fold_weights_multi(
-    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None
+    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None, layout: str = "compact"
 ) -> torch.Tensor:
     """K3's weights ``wc (R, C, Fc_pad)`` from ``Wg (R, C, F)``: restart r
     folds exactly as :func:`fold_weights` folds ``Wg[r]`` (at most two
     features share a Φ row, so the sum is the same in any order)."""
     R, C, F = Wg.shape
     return fold_weights(
-        Wg.reshape(R * C, F), T=T, d=d, l=l, scale=scale
+        Wg.reshape(R * C, F), T=T, d=d, l=l, scale=scale, layout=layout
     ).reshape(R, C, -1)
 
 
@@ -800,19 +949,21 @@ def markov_em_from_features_multi(
     l: int,
     assign_mode: str = "argmax",
     force_prev=None,  # (R,) int/bool; 1 ⇒ the slot takes prev
+    layout: str = "compact",
 ):
     """R-restart EM iteration over Φ with the contract of
     ``pallas_markov.py:1658``: ``(assign (R, n), counts (R, C), switches
-    (R,), g (R, F, C), obj (R,))``.  Folds ``Wg`` (and the int16 scales),
-    runs K3 (:func:`markov_em_compact_multi`) and unfolds its statistics
-    as :func:`markov_em_from_features` does, restart by restart."""
+    (R,), g (R, F, C), obj (R,))``.  Folds ``Wg`` (and the int16 scales)
+    into Φ's ``layout``, runs K3 (:func:`markov_em_compact_multi`) and
+    unfolds its statistics as :func:`markov_em_from_features` does,
+    restart by restart."""
     scale = None
     if isinstance(phi, PhiQuant):
         phi, scale = phi.q, phi.scale
     if lens.shape != (phi.shape[1],):
         raise ValueError(f"lens must be ({phi.shape[1]},), got {tuple(lens.shape)}")
-    pos = _positions(T, d, l, Wg.device)
-    wc = fold_weights_multi(Wg, T=T, d=d, l=l, scale=scale)
+    pos = _positions(T, d, l, Wg.device, layout)
+    wc = fold_weights_multi(Wg, T=T, d=d, l=l, scale=scale, layout=layout)
     assign, counts, switches, macc, obj = markov_em_compact_multi(
         phi, prev_assign, wc, force_prev, assign_mode=assign_mode
     )

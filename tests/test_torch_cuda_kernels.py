@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3, K4a, K4b, K8 and K9 against their plain
-torch versions on the card.  Without a card every test here skips; on the card run
+"""The CUDA kernels K1, K2, K3, K4a, K4b, K5, K7, K8 and K9 against their
+plain torch versions on the card.  Without a card every test here skips; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -19,8 +19,14 @@ sorted E step) may flip an assignment only where the float64 top-2 score
 gap is below 1e-4·(1 + |score|) in float32 (1e-9 in float64); its counts
 and switches are exact for its own assignments.  K9 (the sorted M-step
 Grams) agrees with the plain version in float64 to 1e-4 (float32) or
-1e-11 (float64) of the same sums over |v|: summation order.  Every
-kernel gives the same bits from run to run, float statistics included.
+1e-11 (float64) of the same sums over |v|: summation order.  K5 (the
+canonical Φ at any T) rounds every product and sum on its own, in the
+plain version's order, so it equals the plain version bit for bit.  K7
+(the masked Kalman filter) agrees with the plain version to 1e-10
+relative in float64 and to 1e-4·(1 + |ll|) in float32 (rsqrtf, fused
+multiply-adds and the order of the step's sums); a row with no finite
+entry gives exactly 0.0.  Every kernel gives the same bits from run to
+run, float statistics included.
 """
 
 import numpy as np
@@ -30,6 +36,7 @@ import torch
 from multimodal_trajectory_modeling_tpu_torch.models import em as tem
 from multimodal_trajectory_modeling_tpu_torch.ops import estep_kernels as ek
 from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
+from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov as mops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
 from multimodal_trajectory_modeling_tpu_torch.ops import mstep_kernels as msk
@@ -499,3 +506,206 @@ def test_train_em_sorted_cuda_f64_matches_cpu(cuda):
     assert torch.equal(a_g.cpu(), a_c)
     for x_c, x_g in zip(p_c, p_g):
         np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)
+
+
+# ----------------------------------------------------------------------
+# K7: the masked Kalman filter; K5: the canonical Φ at any T
+# ----------------------------------------------------------------------
+
+
+def _masked_inputs(device, dtype, T, n, d, l, C, seed):
+    """Per-coordinate NaNs (30%), row 0 all NaN, and C parameter rows."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d))
+    x = rng.normal(size=(T, n, l))
+    z[rng.random(z.shape) < 0.3] = np.nan
+    x[rng.random(x.shape) < 0.3] = np.nan
+    z[:, 0] = np.nan
+    x[:, 0] = np.nan
+    params = (
+        rng.normal(size=(C, d)), np.stack([np.eye(d) * 0.8] * C),
+        rng.normal(scale=0.3, size=(C, d, d)), np.stack([np.eye(d) * 0.5] * C),
+        rng.normal(size=(C, d, l)), np.stack([np.eye(l) * 0.4 + 0.1] * C),
+    )
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return (*kk.pack_masked_kalman(t(z), t(x)), *map(t, params))
+
+
+def _assert_masked_close(got, want, dtype):
+    rel = 1e-10 if dtype == torch.float64 else 1e-4
+    assert got.dtype == dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got).all())
+    assert bool(((got - want).abs() <= rel * (1 + want.abs())).all()), float((got - want).abs().max())
+
+
+@pytest.mark.parametrize("d,l", [(5, 3), (2, 4), (2, 3), (1, 1), (4, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_kernel_matches_plain(cuda, d, l, dtype):
+    """The instantiated shapes and, at (4, 3), the general one."""
+    args = _masked_inputs(cuda, dtype, 9, 2053, d, l, 3, seed=d * 10 + l)
+    before = kk.kalman_masked_logliks_packed.launches
+    got = kk.kalman_masked_logliks_packed(*args)
+    assert kk.kalman_masked_logliks_packed.launches == before + 1
+    _assert_masked_close(got, kk.kalman_masked_logliks_packed_plain(*args), dtype)
+    assert bool((got[:, 0] == 0.0).all())  # the all-NaN row
+    assert torch.equal(got, kk.kalman_masked_logliks_packed(*args))
+
+
+def test_masked_kalman_kernel_takes_pool_rows(cuda):
+    """R·C = 512 parameter rows in one launch."""
+    args = _masked_inputs(cuda, torch.float64, 6, 777, 5, 3, 512, seed=3)
+    _assert_masked_close(
+        kk.kalman_masked_logliks_packed(*args), kk.kalman_masked_logliks_packed_plain(*args),
+        torch.float64,
+    )
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_overflow_stays_finite(cuda, dtype):
+    """An expansive A over a long unobserved tail overflows the state in
+    float32; the observed prefix's log-density stays finite."""
+    rng = np.random.default_rng(11)
+    T, n, d, l = 40, 300, 5, 3
+    z = rng.normal(size=(T, n, d))
+    x = rng.normal(size=(T, n, l))
+    z[2:], x[2:] = np.nan, np.nan
+    z[0, ::3, 1] = np.nan
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    eye = lambda k: np.eye(k)[None]  # noqa: E731
+    params = (np.zeros((1, d)), eye(d), 30.0 * eye(d), eye(d), rng.normal(size=(1, d, l)), eye(l))
+    args = (*kk.pack_masked_kalman(t(z), t(x)), *map(t, params))
+    _assert_masked_close(kk.kalman_masked_logliks_packed(*args), kk.kalman_masked_logliks_packed_plain(*args), dtype)
+
+
+def test_masked_kalman_kernel_refuses_bad_arguments(cuda):
+    args = list(_masked_inputs(cuda, torch.float32, 3, 100, 2, 3, 2, seed=1))
+    with pytest.raises(ValueError, match="float32 or float64"):
+        kk.kalman_masked_logliks_packed(args[0].half(), args[1].half(), *args[2:])
+    with pytest.raises(ValueError, match="contiguous"):
+        kk.kalman_masked_logliks_packed(args[0].mT.contiguous().mT, *args[1:])
+    big = _masked_inputs(cuda, torch.float32, 2, 50, 9, 1, 1, seed=2)
+    with pytest.raises(ValueError, match="at most 8"):
+        kk.kalman_masked_logliks_packed(*big)
+
+
+@pytest.mark.parametrize("d,l", [(5, 3), (2, 4), (4, 3)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_longT_features_kernel_is_the_plain_version(cuda, d, l, dtype):
+    T, n = 70, 2053
+    rng = np.random.default_rng(d + l)
+    z = rng.normal(size=(T, n, d))
+    x = rng.normal(size=(T, n, l))
+    lens = rng.integers(1, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    z_t = torch.tensor(z.transpose(0, 2, 1).reshape(T * d, n), dtype=dtype, device=cuda)
+    x_t = torch.tensor(x.transpose(0, 2, 1).reshape(T * l, n), dtype=dtype, device=cuda)
+    lens_d = torch.tensor(lens, device=cuda)
+    before = mk.markov_materialize_features_longT.launches
+    phi = mk.markov_materialize_features_longT(z_t, x_t, lens_d, T=T, d=d, l=l)
+    assert mk.markov_materialize_features_longT.launches == before + 1
+    assert torch.equal(phi, mk.markov_materialize_features_longT_plain(z_t, x_t, lens_d, T=T, d=d, l=l))
+    assert torch.equal(phi, mk.markov_materialize_features_longT(z_t, x_t, lens_d, T=T, d=d, l=l))
+
+
+def test_train_em_masked_kalman_cuda_f64_matches_cpu(cuda):
+    """The masked-filter fit on the card in float64 (K7 every E step)
+    lands where the CPU fit does."""
+    rng = np.random.default_rng(12)
+    T, n, d, l, C = 6, 3000, 2, 3, 2
+    labels = rng.integers(0, C, size=n)
+    z = rng.normal(size=(T, n, d)) + 4.0 * labels[None, :, None]
+    x = rng.normal(size=(T, n, l)) - 3.0 * labels[None, :, None]
+    z[rng.random(z.shape) < 0.1] = np.nan
+    x[rng.random(x.shape) < 0.1] = np.nan
+    assign0 = np.where(rng.uniform(size=n) < 0.2, 1 - labels, labels)
+    params0 = (
+        np.full(C, 0.5), rng.normal(size=(C, d)), np.stack([np.eye(d)] * C),
+        np.zeros((C, d, d)), np.stack([np.eye(d)] * C),
+        rng.normal(size=(C, d, l)), np.stack([np.eye(l)] * C),
+    )
+    fits = []
+    for dev in ("cpu", "cuda"):
+        t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+        fits.append(tem.train_em_masked_kalman(
+            tem.mixture_params_from_numpy(params0, device=dev, dtype=torch.float64),
+            t(assign0, torch.int32), t(z), t(x),
+        ))
+    (p_c, a_c, i_c, s_c), (p_g, a_g, i_g, s_g) = fits
+    assert (i_g, s_g) == (i_c, s_c) and s_c == tem.STATUS_CONVERGED
+    assert torch.equal(a_g.cpu(), a_c)
+    for x_c, x_g in zip(p_c, p_g):
+        np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)
+
+
+def test_train_em_markov_longT_cuda_f64_matches_cpu(cuda):
+    """The long-T Markov fit on the card in float64 (K5 once, K1 on the
+    canonical Φ every iteration) lands where the CPU fit does."""
+    rng = np.random.default_rng(13)
+    T, n, d, l, C = 80, 2000, 3, 2, 2
+    labels = rng.integers(0, C, size=n)
+    z = rng.normal(size=(T, n, d)) + 2.0 * labels[None, :, None]
+    x = rng.normal(size=(T, n, l)) - 1.0 * labels[None, :, None]
+    lens = rng.integers(4, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    assign0 = np.where(rng.uniform(size=n) < 0.2, 1 - labels, labels)
+    params0 = (
+        np.full(C, 0.5), rng.normal(size=(C, d)), np.stack([np.eye(d)] * C),
+        np.zeros((C, d, d)), np.stack([np.eye(d)] * C),
+        rng.normal(size=(C, d, l)), np.stack([np.eye(l)] * C),
+    )
+    fits = []
+    for dev in ("cpu", "cuda"):
+        t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+        before = mk.markov_materialize_features_longT.launches
+        fits.append(tem.train_em_markov(
+            tem.mixture_params_from_numpy(params0, device=dev, dtype=torch.float64),
+            t(assign0, torch.int32), t(z), t(x), t(lens, torch.int32),
+        ))
+        assert mk.markov_materialize_features_longT.launches == before + (dev == "cuda")
+    (p_c, a_c, i_c, s_c), (p_g, a_g, i_g, s_g) = fits
+    assert (i_g, s_g) == (i_c, s_c) and s_c == tem.STATUS_CONVERGED
+    assert torch.equal(a_g.cpu(), a_c)
+    for x_c, x_g in zip(p_c, p_g):
+        np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("wide", [False, True])
+def test_em_multi_kernel_on_canonical_phi_at_pool_width(cuda, wide):
+    """K3 on K5's canonical Φ (144 rows at d=5, l=3) at R=32, C=16, the
+    pool's width: int16 statistics bit-equal to the plain sums and slot by
+    slot to K1; a wide float32 Φ (the objectives' Φ) within 2e-5."""
+    T, d, l, n, R, C = 70, 5, 3, 4099, 32, 16
+    rng = np.random.default_rng(14)
+    z = rng.normal(size=(T, n, d))
+    x = rng.normal(size=(T, n, l))
+    lens = rng.integers(1, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    f32 = lambda a: torch.tensor(a, dtype=torch.float32, device=cuda)  # noqa: E731
+    phi = mk.markov_materialize_features_longT(
+        f32(z.transpose(0, 2, 1).reshape(T * d, n)), f32(x.transpose(0, 2, 1).reshape(T * l, n)),
+        torch.tensor(lens, device=cuda), T=T, d=d, l=l,
+    )
+    assert phi.shape == (144, n)
+    pq = mk.quantize_phi(phi)
+    payload = phi if wide else pq.q
+    wc = f32(rng.normal(size=(R, C, 144)) * 1e-3)
+    prev = torch.tensor(rng.integers(0, C, size=(R, n)).astype(np.int32), device=cuda)
+    prev[:, ::89] = -1
+    force = torch.tensor([r % 3 == 0 for r in range(R)], dtype=torch.int32, device=cuda)
+    a, c, s, macc, obj = mk.markov_em_compact_multi(payload, prev, wc, force)
+    _a, c_p, _s, macc_p, _o = mk.markov_em_compact_multi_plain(
+        payload, torch.where(prev >= 0, a, -1), wc, assign_mode="prev"
+    )
+    assert torch.equal(c, c_p)
+    if wide:
+        scale = macc_p.abs().amax().clamp_min(1.0)
+        assert float((macc - macc_p).abs().max()) <= 2e-5 * float(scale)
+    else:
+        assert macc.dtype == torch.int64 and torch.equal(macc, macc_p)
+    for r in (0, 1, 31):
+        k1 = mk.markov_em_compact(payload, prev[r].contiguous(), wc[r].contiguous(),
+                                  assign_mode="prev" if int(force[r]) else "argmax")
+        assert torch.equal(a[r], k1[0]) and torch.equal(c[r], k1[1]) and torch.equal(s[r], k1[2])

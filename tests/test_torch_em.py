@@ -161,5 +161,5 @@ def test_unported_branches_raise(monkeypatch):
     monkeypatch.delenv("MTM_MARKOV_PHI")
     zl = torch.zeros((70, 50, 2), dtype=torch.float64)  # T·s = 560 > 512
     xl = torch.zeros((70, 50, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K5"):
-        tem.train_em_markov(*args[:2], zl, xl, args[4])
+    with pytest.raises(NotImplementedError, match="K6"):
+        tem.train_em_markov(*args[:2], zl, xl, args[4], precompute=False)

@@ -80,8 +80,10 @@ def test_train_fast_matches_jax_on_adni(adni_data, seed):
 
 def test_unported_routes_raise(adni_data, monkeypatch):
     """What still raises: the verbose transcript, the inference methods,
-    out-of-core training and the masked-filter route (more than 256
-    patterns, or T(d+l) > 512)."""
+    out-of-core training, and at long T on suffix data the branches that
+    need kernel K6 (``MTM_MARKOV_PRECOMP=0`` and the sequential
+    multistart).  The masked-filter route (more than 256 patterns, or
+    T(d+l) > 512) runs."""
     zs, x = adni_data
     _jm, tm = _pair(zs, x, 0)
     with pytest.raises(NotImplementedError, match="item 6"):
@@ -108,7 +110,18 @@ def test_unported_routes_raise(adni_data, monkeypatch):
     np.random.seed(0)
     long_model = TorchMixture(n_clusters=2, states=long_t, observations=long_t, device="cpu")
     for model in (scattered, long_model):
-        with pytest.raises(NotImplementedError, match="item 7"):
-            model.train(fast=True)
-        with pytest.raises(NotImplementedError, match="item 7"):
-            model.train_with_multiple_random_starts(fast=True, use_cache=False)
+        assert model._takes_masked_filter_route()
+        model.train(fast=True, n_steps=2)
+        assert model.last_iterations >= 1
+    suffix = long_t.copy()
+    suffix[1, 0] = 0.0
+    suffix[60:, :5] = np.nan  # T·s = 720 > 512, suffix missingness
+    np.random.seed(0)
+    suffix_model = TorchMixture(n_clusters=2, states=suffix, observations=suffix, device="cpu")
+    monkeypatch.setenv("MTM_MARKOV_PRECOMP", "0")
+    with pytest.raises(NotImplementedError, match="K6"):
+        suffix_model.train(fast=True)
+    monkeypatch.delenv("MTM_MARKOV_PRECOMP")
+    monkeypatch.setenv("MTM_MULTISTART_FUSE", "1")
+    with pytest.raises(NotImplementedError, match="K6"):
+        suffix_model.train_with_multiple_random_starts(fast=True, use_cache=False)
