@@ -66,6 +66,7 @@ from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
 from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov as mops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
+from multimodal_trajectory_modeling_tpu_torch.ops.markov_kernels import markov_packed_ok
 from multimodal_trajectory_modeling_tpu_torch.ops import moments as jmom
 from multimodal_trajectory_modeling_tpu_torch.ops import mstep_kernels as msk
 from multimodal_trajectory_modeling_tpu_torch.ops import regression as rops
@@ -201,12 +202,6 @@ def pack_markov_features(
     return mk.markov_materialize_features(u, lens, T=T, d=d, l=l)
 
 
-def markov_packed_ok(T: int, d: int, l: int) -> bool:
-    """Whether the packed layout takes this shape (T·s ≤ 512); past it Φ
-    is materialized in the canonical layout (kernel K5)."""
-    return T * 8 * ((d + l + 7) // 8) <= 512
-
-
 def _resolve_phi_store(dtype: torch.dtype) -> str:
     """Φ storage from ``MTM_MARKOV_PHI``: ``"i16"`` (int16 with per-row
     scales; the default for float32 compute) or ``"wide"`` (the compute
@@ -245,7 +240,7 @@ def _markov_features(
     longT_always_phi: bool = False,
 ):
     """The Φ routing of every Markov trainer (``em.py:614``): returns
-    ``(u, phi, layout)``.  ``phi`` is a tensor or a
+    ``(u, phi)``.  ``phi`` is a tensor or a
     :class:`~..ops.markov_kernels.PhiQuant`, quantized under
     ``phi_store="i16"`` (``"env"`` resolves ``MTM_MARKOV_PHI``).
 
@@ -273,9 +268,8 @@ def _markov_features(
             u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
         del z_t, x_t
         if not precompute:
-            return u, None, "compact"
+            return u, None
         phi = pack_markov_features(u, lens, T=T, d=d, l=l)
-        layout = "compact"
     else:
         if not (precompute or longT_always_phi):
             raise NotImplementedError(
@@ -284,10 +278,10 @@ def _markov_features(
             )
         phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
         del z_t, x_t
-        u, layout = None, "canonical"
+        u = None
     if phi_store == "i16":
         phi = mk.quantize_phi(phi)
-    return u, phi, layout
+    return u, phi
 
 
 def _weights(params: MixtureParams) -> torch.Tensor:
@@ -322,10 +316,9 @@ def emstep_markov(
     assign_mode: str = "argmax",
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
-    phi_layout: str = "compact",
 ):
     """One EM iteration: ``(new_params, assign, counts, switches)``, from
-    Φ in ``phi_layout`` (K1) or, without Φ, from the packed batch ``u``
+    Φ (K1) or, without Φ, from the packed batch ``u``
     (K4a).  ``assign_mode="prev"`` is the initial M step (statistics
     under ``prev_assign``, no E step)."""
     d = params.m.shape[1]
@@ -333,8 +326,7 @@ def emstep_markov(
     Wg = _weights(params)
     if phi is not None:
         assign, counts, switches, g, _obj = mk.markov_em_from_features(
-            phi, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode,
-            layout=phi_layout,
+            phi, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode
         )
     elif u is not None:
         assign, counts, switches, g, _obj = mk.markov_em_fused_packed(
@@ -398,7 +390,7 @@ def train_em_markov(
     lens = lens.to(torch.int32)
     if int(counts_from_assign(assign0, C).amin()) <= min_members:
         return params0, assign0, 0, STATUS_INIT_ABORT
-    u, phi, layout = _markov_features(z, x, lens, precompute=precompute)
+    u, phi = _markov_features(z, x, lens, precompute=precompute)
     if phi is not None:
         u = None  # Φ carries the iterations; free the packed batch
 
@@ -413,7 +405,6 @@ def train_em_markov(
             assign_mode=mode,
             reg_mode=reg_mode,
             alpha=alpha,
-            phi_layout=layout,
         )
 
     params = step(params0, assign0, "prev")[0]
@@ -502,12 +493,10 @@ def emstep_markov_multi(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     phi=None,  # (Fc_pad, n) tensor or PhiQuant — shared
-    phi_layout: str = "compact",
 ):
     """One EM iteration for R independent restarts over one batch:
     ``(new_params, assign (R, n), counts (R, C), switches (R,), obj
-    (R,))``, from Φ in ``phi_layout`` (K3) or, without Φ, from the packed
-    batch (K4b).
+    (R,))``, from Φ (K3) or, without Φ, from the packed batch (K4b).
     ``force_prev`` puts single slots in prev mode for this pass (a pool
     insertion's initial M step).  The M solves of all R·C clusters run as
     one C-batched solve of R·C clusters (the JAX package ``vmap``s them)."""
@@ -518,7 +507,7 @@ def emstep_markov_multi(
     if phi is not None:
         assign, counts, switches, g, obj = mk.markov_em_from_features_multi(
             phi, lens, prev_assign, Wg, T=T, d=d, l=l,
-            assign_mode=assign_mode, force_prev=force_prev, layout=phi_layout,
+            assign_mode=assign_mode, force_prev=force_prev,
         )
     elif u is not None:
         assign, counts, switches, g, obj = mk.markov_em_fused_packed_multi(
@@ -564,12 +553,12 @@ def train_em_markov_multi(
     C = params0.pi.shape[1]
     assign0 = assign0.to(torch.int32)
     lens = lens.to(torch.int32)
-    u, phi, layout = _markov_features(z, x, lens, u=u, longT_always_phi=True)
+    u, phi = _markov_features(z, x, lens, u=u, longT_always_phi=True)
 
     def step(params, prev, mode):
         return emstep_markov_multi(
             params, lens, prev, u, T=T, assign_mode=mode, reg_mode=reg_mode,
-            alpha=alpha, phi=phi, phi_layout=layout,
+            alpha=alpha, phi=phi,
         )
 
     init_abort = _counts_rows(assign0, C).amin(dim=1) <= min_members
@@ -634,7 +623,6 @@ def _pool_window(
     reg_mode: str,
     alpha: float,
     min_members: int,
-    phi_layout: str = "compact",
 ):
     """K multi-restart EM passes with per-slot freezing and insertion:
     one K3 (or K4b) pass each, no host read (the JAX package runs them as
@@ -643,7 +631,7 @@ def _pool_window(
     def emstep_fn(params, assigns, force):
         return emstep_markov_multi(
             params, lens, assigns, u, T=T, force_prev=force,
-            reg_mode=reg_mode, alpha=alpha, phi=phi, phi_layout=phi_layout,
+            reg_mode=reg_mode, alpha=alpha, phi=phi,
         )[:4]
 
     return _pool_window_protocol(
@@ -790,7 +778,7 @@ def train_em_markov_pool(
     R = max(1, min(R, len(params_list)))
     K = max(1, int(sync_every))
     lens = lens.to(torch.int32)
-    u, phi, layout = _markov_features(z, x, lens, u=u, longT_always_phi=True)
+    u, phi = _markov_features(z, x, lens, u=u, longT_always_phi=True)
     if phi is not None:
         u = None  # Φ carries the passes
 
@@ -798,7 +786,6 @@ def train_em_markov_pool(
         return _pool_window(
             *state, lens, u, phi, T=T, K=K, n_steps=n_steps,
             reg_mode=reg_mode, alpha=float(alpha), min_members=min_members,
-            phi_layout=layout,
         )
 
     if z.device.type == "cuda":
@@ -820,11 +807,10 @@ def complete_data_loglik_markov_multi(
     *,
     T: int,
     phi=None,  # Φ tensor or PhiQuant
-    phi_layout: str = "compact",
 ) -> torch.Tensor:
     """Per-restart objectives ``Σ_i max_c scores`` ``(R,)`` in one kernel
-    pass: K4b over the packed batch, or K3 over Φ in ``phi_layout``
-    (``em.py:2704``; the only route at long T, from the canonical Φ)."""
+    pass: K4b over the packed batch, or K3 over Φ (``em.py:2704``; the
+    only route at long T, from the canonical Φ)."""
     R = params.pi.shape[0]
     d = params.m.shape[2]
     l = params.H.shape[3]
@@ -832,7 +818,7 @@ def complete_data_loglik_markov_multi(
     prev = torch.zeros((R, lens.shape[0]), dtype=torch.int32, device=lens.device)
     if phi is not None:
         return mk.markov_em_from_features_multi(
-            phi, lens, prev, Wg, T=T, d=d, l=l, layout=phi_layout
+            phi, lens, prev, Wg, T=T, d=d, l=l
         )[4]
     return mk.markov_em_fused_packed_multi(u, lens, prev, Wg, T=T, d=d, l=l)[4]
 

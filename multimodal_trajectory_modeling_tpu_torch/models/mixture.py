@@ -681,10 +681,7 @@ class MMLinGaussSS_marginalizable:
             objectives = []
             for i0 in range(0, len(results), r_fuse):
                 grp = em.stack_params([p for p, *_ in results[i0 : i0 + r_fuse]])
-                objs = em.complete_data_loglik_markov_multi(
-                    grp, lens_d, u, T=T, phi=phi_obj,
-                    phi_layout="compact" if packed_ok else "canonical",
-                )
+                objs = em.complete_data_loglik_markov_multi(grp, lens_d, u, T=T, phi=phi_obj)
                 objectives += objs.cpu().tolist()
         elif lens is not None:
             results, objectives = [], []

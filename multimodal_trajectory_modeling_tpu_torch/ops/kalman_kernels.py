@@ -24,8 +24,6 @@ tensors launch the kernel or raise.  The wrapper counts its launches in
 
 from __future__ import annotations
 
-import functools
-
 import torch
 
 from multimodal_trajectory_modeling_tpu_torch.ops import _build
@@ -147,42 +145,27 @@ def kalman_masked_logliks_pallas(z, x, m, S, A, G, H, L) -> torch.Tensor:
     return kalman_masked_logliks_packed(*pack_masked_kalman(z, x), m, S, A, G, H, L)
 
 
-_ELEMENTWISE = frozenset(
-    {"add", "sub", "mul", "gt", "__radd__", "__rsub__", "__rmul__", "__and__",
-     "where", "log", "rsqrt"}
-)
-
-
-@functools.lru_cache(maxsize=None)
 def masked_step_operations(d: int, l: int) -> int:
     """Element operations of one masked filter step (one row, one
-    parameter row), counted from the step's own code: the plain split
-    step runs once on one-lane tensors and every elementwise operation it
-    issues is counted (adds, subtractions, multiplies, compares, selects,
-    ``log``, ``rsqrt``).  Used for K7's bound."""
-    counted = [0]
-
-    class _Count(torch.overrides.TorchFunctionMode):
-        def __torch_function__(self, func, types, args=(), kwargs=None):
-            name = getattr(func, "__name__", "")
-            # Python's sum() starts from the integer 0: no operation
-            if name in _ELEMENTWISE and not any(type(a) is int and a == 0 for a in args):
-                counted[0] += 1
-            return func(*args, **(kwargs or {}))
-
-    def lane(v):
-        return torch.full((1,), float(v), dtype=torch.float64)
-
-    def mat(r, c, diag):
-        return [[diag if i == j else 0.1 for j in range(c)] for i in range(r)]
-
-    mu = [lane(0.0) for _ in range(d)]
-    P = kops._tri_unpack([lane(1.0 if i == j else 0.1) for i in range(d) for j in range(i + 1)], d)
-    z_t, x_t = [lane(0.5)] * d, [lane(0.5)] * l
-    oz, ox = [lane(1.0)] * d, [lane(1.0)] * l
-    with _Count():
-        kops.masked_filter_step_split(
-            mu, P, z_t, x_t, oz, ox, mat(d, l, 1.0), mat(d, d, 0.9), mat(d, d, 1.0),
-            mat(l, l, 1.0), d, l,
-        )
-    return counted[0]
+    parameter row): every add, subtraction, multiply, compare, select,
+    ``log`` and ``rsqrt`` of :func:`.kalman.masked_filter_step_split`,
+    counted part by part (``tests/test_torch_kalman.py`` holds the count
+    against the operations the plain step issues).  Used for K7's
+    bound."""
+    tri = d * (d + 1) // 2
+    # d scalar conditionings on z: compare, row select, rsqrt, reciprocal,
+    # innovation, log term, gain, μ and P downdates; the terms summed, ×−½
+    z_cond = d * (d * d + 5 * d + 12) + d
+    # PH = P_c H, the lower triangle of HᵀPH + Λ, Hᵀμ, the innovation
+    moments = d * l * (2 * d - 1) + l * (l + 1) * d + l * (2 * d - 1) + l
+    chol = sum(2 * j + 2 + (l - 1 - j) * (2 * j + 1) for j in range(l))
+    x_update = (
+        2 * l * l + 2 * l  # the masked innovation covariance
+        + chol
+        + 2 * l + l * l  # the masked innovation, L⁻¹e
+        + (2 * l - 1) + 2 * l + (l - 1) + 4  # quadratic form, log-det, count, ll
+        + d * (2 * l + l * l)  # U = L⁻¹ PM, PM masked
+        + 2 * d * l + 2 * l * tri  # μ + Uᵀw, P − UᵀU
+    )
+    predict = d * (2 * d - 1) + d * d * (2 * d - 1) + 2 * d * tri  # μA, AᵀP, AᵀPA + G
+    return z_cond + moments + x_update + predict + 1  # + 1: ll_z + ll_x

@@ -25,11 +25,11 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
   rows.  The index arrays are identical to the JAX package's.  Unlike
   there, the instance axis is not padded: the kernels mask the ragged
   edge.
-- Layouts of Φ (``_feature_layout``): ``"compact"``, the referenced ACC
-  rows of the packed batch (K2, T·s ≤ 512), and ``"canonical"``, the
-  g-layout rows themselves (K5, any T); K1 and K3 read either, their
-  weights folded and their statistics unfolded through the layout's
-  feature → row map.
+- Layouts of Φ (``_feature_layout``, decided by the shape alone): the
+  compact layout, the referenced ACC rows of the packed batch (K2, T·s ≤
+  512), and past it the canonical layout, the g-layout rows themselves
+  (K5, built for any T); K1 and K3 read either, their weights folded and
+  their statistics unfolded through the layout's feature → row map.
 - Storage (``PhiQuant``, ``quantize_phi``): Φ may be stored int16 with one
   scale per row; the scales fold into the score weights and unfold from
   the statistics, so K1 and K3 read half the bytes.
@@ -73,6 +73,7 @@ __all__ = [
     "markov_materialize_features_longT",
     "markov_materialize_features_longT_plain",
     "markov_materialize_features_plain",
+    "markov_packed_ok",
     "markov_packed_spec",
     "pack_markov_u",
     "phi_scale_from_absmax",
@@ -181,27 +182,34 @@ def _canonical_offsets(d: int, l: int) -> dict:
     return o
 
 
-def _feature_layout(T: int, d: int, l: int, layout: str):
-    """(padded row count, g-layout feature → Φ row) for a Φ layout
-    (``pallas_markov.py:1281``): the compact rows of K2, or the canonical
-    rows of K5, ``F = 4d²+l²+dl+2d+l+d+2`` padded to 8 (144 at d=5,
-    l=3)."""
-    if layout == "compact":
+def markov_packed_ok(T: int, d: int, l: int) -> bool:
+    """Whether the packed layout takes this shape (T·s ≤ 512); past it Φ
+    is materialized in the canonical layout (kernel K5)."""
+    return T * 8 * ((d + l + 7) // 8) <= 512
+
+
+def _canonical_rows(d: int, l: int) -> int:
+    """Row count of the canonical Φ: ``F = 4d²+l²+dl+2d+l+d+2`` padded to
+    8 (144 at d=5, l=3; ``pallas_markov.py:1281``)."""
+    return 8 * ((_canonical_offsets(d, l)["F"] + 7) // 8)
+
+
+def _feature_layout(T: int, d: int, l: int):
+    """(padded row count, g-layout feature → Φ row) of the Φ that the
+    trainers build at this shape (``pallas_markov.py:1281``): the compact
+    rows of K2 where the packed layout takes the shape
+    (:func:`markov_packed_ok`), else the canonical rows of K5."""
+    if markov_packed_ok(T, d, l):
         Fc_pad, _uniq, pos = markov_compact_spec(T, d, l)
         return Fc_pad, pos
-    if layout == "canonical":
-        F = _canonical_offsets(d, l)["F"]
-        return 8 * ((F + 7) // 8), np.arange(F, dtype=np.int64)
-    raise ValueError(f"unknown Φ layout {layout!r}")
+    return _canonical_rows(d, l), np.arange(_canonical_offsets(d, l)["F"], dtype=np.int64)
 
 
 @functools.lru_cache(maxsize=None)
-def _positions(
-    T: int, d: int, l: int, device: torch.device, layout: str = "compact"
-) -> torch.Tensor:
+def _positions(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
     """``pos`` of :func:`_feature_layout` as a tensor on ``device`` (read
     by every EM iteration; copied to the device once)."""
-    return torch.as_tensor(_feature_layout(T, d, l, layout)[1], device=device)
+    return torch.as_tensor(_feature_layout(T, d, l)[1], device=device)
 
 
 @functools.lru_cache(maxsize=None)
@@ -456,7 +464,7 @@ def markov_materialize_features_longT_plain(
     the steps added in order."""
     _check_longT_args(z_t, x_t, lens, T, d, l)
     n, dtype = z_t.shape[1], z_t.dtype
-    F_pad, _pos = _feature_layout(T, d, l, "canonical")
+    F_pad = _canonical_rows(d, l)
     o = _canonical_offsets(d, l)
     z3, x3 = z_t.reshape(T, d, n), x_t.reshape(T, l, n)
     acc = torch.zeros((F_pad, n), dtype=dtype, device=z_t.device)
@@ -527,7 +535,7 @@ def markov_materialize_features_longT(
             f"d={d}, l={l}: the long-T feature kernel takes at most "
             f"{lib.mtm_markov_features_longT_max_dim()} of each"
         )
-    F_pad = _feature_layout(T, d, l, "canonical")[0]
+    F_pad = _canonical_rows(d, l)
     phi = torch.empty((F_pad, n), dtype=z_t.dtype, device=z_t.device)
     rc = lib.mtm_markov_features_longT(
         _device_index(z_t),
@@ -736,12 +744,12 @@ markov_em_compact.launches = 0
 
 
 def fold_weights(
-    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None, layout: str = "compact"
+    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None
 ) -> torch.Tensor:
     """K1's weights ``wc (C, Fc_pad)`` from the g-layout ``Wg (C, F)``:
     features that share a Φ row add up, and int16 ``scale`` folds in."""
-    pos = _positions(T, d, l, Wg.device, layout)
-    Fc_pad = _feature_layout(T, d, l, layout)[0]
+    pos = _positions(T, d, l, Wg.device)
+    Fc_pad = _feature_layout(T, d, l)[0]
     wc = torch.zeros((Wg.shape[0], Fc_pad), dtype=Wg.dtype, device=Wg.device)
     wc.index_add_(1, pos, Wg)
     if scale is not None:
@@ -758,18 +766,18 @@ def markov_em_from_features(
     d: int,
     l: int,
     assign_mode: str = "argmax",
-    layout: str = "compact",
 ):
     """One EM iteration over Φ with the contract of
     ``pallas_markov.py:1464``: ``(assign, counts, switches, g (F, C),
-    obj)``.  Folds ``Wg`` into Φ's ``layout`` (and the int16 scales), runs
+    obj)``.  Folds ``Wg`` into the layout of Φ at this shape
+    (:func:`_feature_layout`; and the int16 scales), runs
     K1 (:func:`markov_em_compact`) and unfolds its statistics into the
     g-layout."""
     scale = None
     if isinstance(phi, PhiQuant):
         phi, scale = phi.q, phi.scale
-    pos = _positions(T, d, l, Wg.device, layout)
-    wc = fold_weights(Wg, T=T, d=d, l=l, scale=scale, layout=layout)
+    pos = _positions(T, d, l, Wg.device)
+    wc = fold_weights(Wg, T=T, d=d, l=l, scale=scale)
     assign, counts, switches, macc, obj = markov_em_compact(
         phi, prev_assign, wc, assign_mode=assign_mode
     )
@@ -927,14 +935,14 @@ markov_em_compact_multi.launches = 0
 
 
 def fold_weights_multi(
-    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None, layout: str = "compact"
+    Wg: torch.Tensor, *, T: int, d: int, l: int, scale=None
 ) -> torch.Tensor:
     """K3's weights ``wc (R, C, Fc_pad)`` from ``Wg (R, C, F)``: restart r
     folds exactly as :func:`fold_weights` folds ``Wg[r]`` (at most two
     features share a Φ row, so the sum is the same in any order)."""
     R, C, F = Wg.shape
     return fold_weights(
-        Wg.reshape(R * C, F), T=T, d=d, l=l, scale=scale, layout=layout
+        Wg.reshape(R * C, F), T=T, d=d, l=l, scale=scale
     ).reshape(R, C, -1)
 
 
@@ -949,21 +957,20 @@ def markov_em_from_features_multi(
     l: int,
     assign_mode: str = "argmax",
     force_prev=None,  # (R,) int/bool; 1 ⇒ the slot takes prev
-    layout: str = "compact",
 ):
     """R-restart EM iteration over Φ with the contract of
     ``pallas_markov.py:1658``: ``(assign (R, n), counts (R, C), switches
     (R,), g (R, F, C), obj (R,))``.  Folds ``Wg`` (and the int16 scales)
-    into Φ's ``layout``, runs K3 (:func:`markov_em_compact_multi`) and
-    unfolds its statistics as :func:`markov_em_from_features` does,
-    restart by restart."""
+    into the layout of Φ at this shape, runs K3
+    (:func:`markov_em_compact_multi`) and unfolds its statistics as
+    :func:`markov_em_from_features` does, restart by restart."""
     scale = None
     if isinstance(phi, PhiQuant):
         phi, scale = phi.q, phi.scale
     if lens.shape != (phi.shape[1],):
         raise ValueError(f"lens must be ({phi.shape[1]},), got {tuple(lens.shape)}")
-    pos = _positions(T, d, l, Wg.device, layout)
-    wc = fold_weights_multi(Wg, T=T, d=d, l=l, scale=scale, layout=layout)
+    pos = _positions(T, d, l, Wg.device)
+    wc = fold_weights_multi(Wg, T=T, d=d, l=l, scale=scale)
     assign, counts, switches, macc, obj = markov_em_compact_multi(
         phi, prev_assign, wc, force_prev, assign_mode=assign_mode
     )

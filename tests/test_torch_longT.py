@@ -98,7 +98,7 @@ def test_longT_features_match_jax(T, d, l):
     got = tmk.markov_materialize_features_longT(
         *map(torch.from_numpy, (z_t, x_t, lens)), T=T, d=d, l=l
     ).numpy()
-    F_pad, pos = tmk._feature_layout(T, d, l, "canonical")
+    F_pad, pos = tmk._feature_layout(T, d, l)
     assert got.shape == (F_pad, 200) and len(pos) == 4 * d * d + l * l + d * l + 3 * d + l + 2
     np.testing.assert_allclose(got, want, rtol=1e-12, atol=1e-12 * np.abs(want).max())
     # the g-layout oracle of the feature definition
@@ -126,10 +126,10 @@ def _canonical_phi(seed, C=3, R=None):
 @pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
 def test_k1_on_canonical_phi_matches_jax(assign_mode):
     phi, lens, prev, Wg, (T, d, l) = _canonical_phi(21)
-    kw = dict(T=T, d=d, l=l, assign_mode=assign_mode, layout="canonical")
+    kw = dict(T=T, d=d, l=l, assign_mode=assign_mode)
     want = jpm.markov_em_from_features(
         jnp.asarray(phi.numpy()), jnp.asarray(lens.numpy()), jnp.asarray(prev.numpy()),
-        jnp.asarray(Wg.numpy()), interpret=True, **kw,
+        jnp.asarray(Wg.numpy()), layout="canonical", interpret=True, **kw,
     )
     got = tmk.markov_em_from_features(phi, prev, Wg, **kw)
     for k in (0, 1, 2):
@@ -141,10 +141,10 @@ def test_k1_on_canonical_phi_matches_jax(assign_mode):
 def test_k3_on_canonical_phi_matches_jax():
     phi, lens, prev, Wg, (T, d, l) = _canonical_phi(22, R=3)
     force = np.array([0, 1, 0], np.int32)
-    kw = dict(T=T, d=d, l=l, layout="canonical")
+    kw = dict(T=T, d=d, l=l)
     want = jpm.markov_em_from_features_multi(
         jnp.asarray(phi.numpy()), jnp.asarray(lens.numpy()), jnp.asarray(prev.numpy()),
-        jnp.asarray(Wg.numpy()), force_prev=jnp.asarray(force), interpret=True, **kw,
+        jnp.asarray(Wg.numpy()), force_prev=jnp.asarray(force), layout="canonical", interpret=True, **kw,
     )
     got = tmk.markov_em_from_features_multi(phi, lens, prev, Wg, force_prev=torch.from_numpy(force), **kw)
     for k in (0, 1, 2):
@@ -197,7 +197,6 @@ def test_train_em_markov_pool_longT_matches_jax():
     phi_t = tmk.markov_materialize_features_longT(*map(torch.from_numpy, (z_t, x_t, lens)), T=T, d=d, l=l)
     got = tem.complete_data_loglik_markov_multi(
         tem.stack_params([r[0] for r in tres]), torch.from_numpy(lens), None, T=T, phi=phi_t,
-        phi_layout="canonical",
     )
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
 

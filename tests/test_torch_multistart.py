@@ -122,7 +122,7 @@ def test_emstep_markov_multi_matches_jax(branch):
         _u, phi_j, _layout = jem._markov_features(
             jnp.asarray(z), jnp.asarray(x), jnp.asarray(lens), T=T, d=d, l=l
         )
-        _u, phi_t, _layout_t = tem._markov_features(_t(z), _t(x), _t(lens))
+        _u, phi_t = tem._markov_features(_t(z), _t(x), _t(lens))
     out_j = jem.emstep_markov_multi(
         _jstack(ps), jnp.asarray(lens), jnp.asarray(prev), u_j, T=T,
         force_prev=jnp.asarray(force), phi=phi_j,
@@ -172,7 +172,7 @@ def test_complete_data_loglik_markov_matches_jax():
     want = jem.complete_data_loglik_markov_multi(_jstack(ps), jnp.asarray(lens), u_j, T=T)
     got = tem.complete_data_loglik_markov_multi(_tstack(ps), _t(lens), u_t, T=T)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-10)
-    _u, phi_t, _layout_t = tem._markov_features(_t(z), _t(x), _t(lens))
+    _u, phi_t = tem._markov_features(_t(z), _t(x), _t(lens))
     got_phi = tem.complete_data_loglik_markov_multi(_tstack(ps), _t(lens), None, T=T, phi=phi_t)
     np.testing.assert_allclose(got_phi.numpy(), np.asarray(want), rtol=1e-10)
     for r in range(R):
