@@ -11,7 +11,10 @@ What is ported so far:
   NaN-suffix-padded trajectories) at any T: ``train(fast=True)`` and the
   slot-pool multistart ``train_with_multiple_random_starts(fast=True)``,
   with its own k-means init (no scikit-learn) and the gzip-pickle cache;
-  kernels K1-K5 (``ops/markov_kernels.py``);
+  kernels K1-K5 (``ops/markov_kernels.py``); without Φ
+  (``MTM_MARKOV_PRECOMP=0``) and in the sequential multistart at long T,
+  kernel K6 on the raw batch, and the E step on it, K10 (K11, the same
+  function from canonical weights, has no caller);
 - the dense joint route for any missingness: ``train()`` and the dense
   multistart in plain torch, and ``train(fast=True)`` / the fast
   multistart on interior missingness (up to 256 patterns and
@@ -21,11 +24,17 @@ What is ported so far:
   past that gate: ``train(fast=True)`` and the fast multistart (one
   candidate after another, or pooled under ``MTM_MASKED_POOL=1``), with
   kernel K7 (``ops/kalman_kernels.py``; the filters in plain torch in
-  ``ops/kalman.py``).
+  ``ops/kalman.py``);
+- the complete-data inference methods (log-likelihoods per cluster,
+  propensities over time, ``e_complete_data_log_lik``,
+  ``model_log_likelihood``, ``aic``/``bic``, ``mle_cluster_assignment``,
+  the predictions), ``E_step``/``M_step`` and the verbose transcript of
+  ``train`` and the multistart.
 
 The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
-route raises ``NotImplementedError`` naming the ROADMAP item that will
-bring it.
+route (the observed-only inference family, out-of-core and data-parallel
+training) raises ``NotImplementedError`` naming the ROADMAP item that
+will bring it.
 
 Devices are explicit: public entry points take ``device=`` (default
 ``"cuda"``, the card; the tests pass ``device="cpu"``) and ``dtype=``

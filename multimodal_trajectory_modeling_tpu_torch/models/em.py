@@ -4,12 +4,14 @@ one fit and for many starts, and the dense joint route.
 Counterpart of ``multimodal_trajectory_modeling_tpu/models/em.py``.  For
 suffix-only missingness (variable-length, NaN-suffix-padded
 trajectories): ``MixtureParams`` and the status codes (:93-118),
-``counts_from_assign`` (:372), ``_unpack_markov_em_stats`` (:484),
-``pack_markov_batch`` (:523), ``pack_markov_features`` (:540),
-``markov_packed_ok`` (:573), ``_resolve_phi_store`` (:580),
-``_markov_features`` (:614, packed shapes), ``emstep_markov`` (:705),
-``complete_data_loglik_markov`` (:1066), ``_em_termination`` (:1236),
-``train_em_markov`` (:1754), and the multistart engine:
+``counts_from_assign`` (:372), ``estep_assign_markov`` (:442),
+``_unpack_markov_em_stats`` (:484), ``pack_markov_batch`` (:523),
+``pack_markov_features`` (:540), ``markov_packed_ok`` (:573),
+``_resolve_phi_store`` (:580), ``_markov_features`` (:614),
+``emstep_markov`` (:705), ``complete_data_loglik_markov`` (:1066),
+``suffix_logliks_markov`` (:1175, both forms), ``model_loglik_markov``
+(:1209), ``_em_termination`` (:1236), ``train_em_markov`` (:1754), and
+the multistart engine:
 ``_tree_select_rows`` (:2161), ``emstep_markov_multi`` (:2172),
 ``train_em_markov_multi`` (:2261), ``_pool_window_protocol`` (:2358),
 ``_pool_window`` (:2414), ``_run_slot_pool`` (:2464),
@@ -31,11 +33,14 @@ T·s = 512 the canonical Φ, K5), stores it int16 under float32 compute,
 and runs every iteration as one Φ-reading kernel (K1; K3 for R restarts
 at once) followed by small per-cluster solves; ``precompute=False``
 rebuilds Φ from the packed batch in every iteration instead (K4a; K4b
-for R restarts; at long T this needs the unported K6 and raises).  The
+for R restarts), or at long T from the raw transposed batch (K6).  The
 multistart objectives come from K4a/K4b on the wide packed batch, or at
-long T from K3 on a wide canonical Φ.  The masked-filter route (any
-per-coordinate missingness, any T) runs one masked Kalman filter pass
-per E step (K7) and the plain-torch masked M step.  The dense route
+long T from K3 on a wide canonical Φ (the pool) or K6 (one candidate
+after another).  The inference helpers score suffix data in O(T): the E
+step from the raw batch (K10), the (C, n) log-likelihoods through K5's
+Φ on the card.  The masked-filter route (any per-coordinate
+missingness, any T) runs one masked Kalman filter pass per E step (K7)
+and the plain-torch masked M step.  The dense route
 evaluates every instance's masked joint Gaussian: ``train_em`` in plain
 torch (one grouped log-density per cluster, time-batched statistics), and
 ``train_em_sorted`` over a batch sorted by missingness pattern through
@@ -88,6 +93,7 @@ __all__ = [
     "emstep_markov",
     "emstep_markov_multi",
     "emstep_masked_kalman_multi",
+    "estep_assign_markov",
     "estep_assign_sorted",
     "estep_logliks",
     "markov_packed_ok",
@@ -95,6 +101,7 @@ __all__ = [
     "mixture_params_from_numpy",
     "mixture_params_to_numpy",
     "model_loglik",
+    "model_loglik_markov",
     "mstep",
     "mstep_multi",
     "mstep_sorted",
@@ -102,6 +109,7 @@ __all__ = [
     "pack_markov_batch",
     "pack_markov_features",
     "stack_params",
+    "suffix_logliks_markov",
     "train_em",
     "train_em_markov",
     "train_em_markov_multi",
@@ -249,10 +257,10 @@ def _markov_features(
       ``MTM_MARKOV_PRECOMP``, on), the compact Φ (K2); else ``phi`` is
       None and every iteration rebuilds Φ from ``u``;
     - long T: the canonical Φ (K5), no packed batch.  Without
-      ``precompute`` the single-restart trainer would run the grid-over-T
-      EM kernel K6, which is not ported: that raises.  The R-restart
-      callers pass ``longT_always_phi`` (their kernels have no such
-      mode)."""
+      ``precompute`` ``u`` is the transposed pair ``(z_t, x_t)`` and
+      ``phi`` None: every iteration of the single-restart trainer runs K6
+      on the raw batch.  The R-restart callers pass ``longT_always_phi``
+      (their kernels have no such mode)."""
     T, n, d = z.shape
     l = x.shape[-1]
     if precompute is None:
@@ -272,10 +280,7 @@ def _markov_features(
         phi = pack_markov_features(u, lens, T=T, d=d, l=l)
     else:
         if not (precompute or longT_always_phi):
-            raise NotImplementedError(
-                f"MTM_MARKOV_PRECOMP=0 at T·s = {T * 8 * ((d + l + 7) // 8)} > 512 "
-                "runs the grid-over-T EM kernel K6, not ported (ROADMAP Queue 2)"
-            )
+            return (z_t, x_t), None
         phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
         del z_t, x_t
         u = None
@@ -292,6 +297,16 @@ def _weights(params: MixtureParams) -> torch.Tensor:
     )
     Wg[:, -1] += torch.log(params.pi)
     return Wg
+
+
+def _grouped_weights(params: MixtureParams):
+    """The grouped weights ``(W1, W2, W3)`` of K6 and K10, log π folded
+    into ``W3[:, -1]``."""
+    W1, W2, W3 = mops.markov_cluster_weights_grouped(
+        params.m, params.S, params.A, params.G, params.H, params.L
+    )
+    W3[:, -1] += torch.log(params.pi)
+    return W1, W2, W3
 
 
 def _msolve(g, counts, n, d, l, *, reg_mode, alpha) -> MixtureParams:
@@ -312,25 +327,30 @@ def emstep_markov(
     phi=None,  # (Fc_pad, n) tensor or PhiQuant (_markov_features)
     *,
     T: int,
-    u: torch.Tensor | None = None,  # (T·s, n) packed batch
+    u=None,  # (T·s, n) packed batch, or at long T the pair (z_t, x_t)
     assign_mode: str = "argmax",
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
 ):
     """One EM iteration: ``(new_params, assign, counts, switches)``, from
-    Φ (K1) or, without Φ, from the packed batch ``u``
-    (K4a).  ``assign_mode="prev"`` is the initial M step (statistics
-    under ``prev_assign``, no E step)."""
+    Φ (K1) or, without Φ, from the packed batch ``u`` (K4a) or at long T
+    from the transposed batch ``u = (z_t, x_t)`` (K6, the grouped
+    weights; ``em.py:794-815``).  ``assign_mode="prev"`` is the initial M
+    step (statistics under ``prev_assign``, no E step)."""
     d = params.m.shape[1]
     l = params.H.shape[2]
-    Wg = _weights(params)
     if phi is not None:
         assign, counts, switches, g, _obj = mk.markov_em_from_features(
-            phi, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode
+            phi, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode
+        )
+    elif isinstance(u, tuple):
+        assign, counts, switches, g, _obj = mk.markov_em_fused_longT(
+            *u, lens, prev_assign, *_grouped_weights(params), T=T, d=d, l=l,
+            assign_mode=assign_mode,
         )
     elif u is not None:
         assign, counts, switches, g, _obj = mk.markov_em_fused_packed(
-            u, lens, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode
+            u, lens, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode
         )
     else:
         raise ValueError("emstep_markov needs phi or the packed batch u")
@@ -382,8 +402,8 @@ def train_em_markov(
     ``precompute`` (default ``MTM_MARKOV_PRECOMP``, on) materializes Φ
     once (K2; at long T the canonical Φ, K5) and runs every iteration
     from it (K1); off, every iteration rebuilds Φ from the packed batch
-    (K4a; at long T this needs K6 and raises).  Both give the same
-    trajectory in float64."""
+    (K4a), or at long T from the transposed batch (K6).  Both give the
+    same trajectory in float64."""
     T = z.shape[0]
     C = params0.pi.shape[0]
     assign0 = assign0.to(torch.int32)
@@ -432,19 +452,89 @@ def complete_data_loglik_markov(
     T: int,
 ) -> torch.Tensor:
     """The hard-assignment complete-data objective under a fresh E step,
-    ``Σ_i max_c scores``, as a 0-d tensor: one K4a pass over the packed
-    batch (``em.py:1066``).  At long T the JAX package runs the
-    grid-over-T kernel K6, not ported: that raises."""
+    ``Σ_i max_c scores``, as a 0-d tensor (``em.py:1066``): one K4a pass
+    over the packed batch, or past T·s = 512 one K6 pass over the
+    transposed batch."""
     d = params.m.shape[1]
     l = params.H.shape[2]
-    if not markov_packed_ok(T, d, l):
-        raise NotImplementedError(
-            "the long-T objective of the sequential multistart runs the "
-            "grid-over-T EM kernel K6, not ported (ROADMAP Queue 2)"
-        )
-    u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
     prev = torch.zeros(lens.shape, dtype=torch.int32, device=lens.device)
+    if not markov_packed_ok(T, d, l):
+        return mk.markov_em_fused_longT(
+            z_t, x_t, lens, prev, *_grouped_weights(params), T=T, d=d, l=l
+        )[4]
+    u = pack_markov_batch(z_t, x_t, T=T, d=d, l=l)
     return mk.markov_em_fused_packed(u, lens, prev, _weights(params), T=T, d=d, l=l)[4]
+
+
+def estep_assign_markov(
+    params: MixtureParams,
+    z_t: torch.Tensor,  # (T·d, n) transposed latent batch
+    x_t: torch.Tensor,  # (T·l, n) transposed observations
+    lens: torch.Tensor,  # (n,) int32 observed prefix lengths
+    prev_assign: torch.Tensor,  # (n,) int32
+    *,
+    T: int,
+):
+    """The E step on suffix data from the raw batch, ``(assign, counts,
+    switches)``, log π folded into the end weights: one K10 pass
+    (``em.py:442``)."""
+    d = params.m.shape[1]
+    l = params.H.shape[2]
+    return mk.markov_assign_suffix(
+        z_t, x_t, lens, prev_assign, *_grouped_weights(params), T=T, d=d, l=l
+    )
+
+
+def _suffix_logliks_markov_xla(params: MixtureParams, z, x, lens) -> torch.Tensor:
+    """The slice-pair form of :func:`suffix_logliks_markov` (plain
+    torch)."""
+    W = mops.markov_cluster_weights(params.m, params.S, params.A, params.G, params.H, params.L)
+    return mops.markov_suffix_logliks(z, x, lens, W)
+
+
+def _suffix_logliks_markov_phi(params: MixtureParams, z, x, lens) -> torch.Tensor:
+    """The Φ form of :func:`suffix_logliks_markov`: the canonical Φ (K5),
+    then one full-precision ``(C, F_pad)·(F_pad, n)`` product."""
+    T, n, d = z.shape
+    l = x.shape[-1]
+    z_t = z.permute(0, 2, 1).reshape(T * d, n)
+    x_t = x.permute(0, 2, 1).reshape(T * l, n)
+    phi = mk.markov_materialize_features_longT(z_t, x_t, lens.to(torch.int32), T=T, d=d, l=l)
+    Wg = mops.markov_em_weights(params.m, params.S, params.A, params.G, params.H, params.L)
+    wc = torch.zeros((Wg.shape[0], phi.shape[0]), dtype=Wg.dtype, device=Wg.device)
+    wc[:, : Wg.shape[1]] = Wg  # the canonical rows are 0..F-1
+    return wc @ phi
+
+
+def suffix_logliks_markov(
+    params: MixtureParams,
+    z: torch.Tensor,  # (T, n, d) NaN-suffix-padded
+    x: torch.Tensor,  # (T, n, l)
+    lens: torch.Tensor,  # (n,) int observed prefix lengths (1..T)
+    *,
+    via_phi: bool | None = None,
+) -> torch.Tensor:
+    """``(C, n)`` joint log-likelihoods under suffix missingness in O(T)
+    (``em.py:1175``): through K5's canonical Φ and one weight product
+    (``via_phi``, the default on the card), or through the slice-pair
+    features (the default on the CPU).  The two agree to rounding."""
+    if via_phi is None:
+        via_phi = z.device.type == "cuda"
+    if via_phi:
+        return _suffix_logliks_markov_phi(params, z, x, lens)
+    return _suffix_logliks_markov_xla(params, z, x, lens)
+
+
+def model_loglik_markov(
+    params: MixtureParams,
+    z: torch.Tensor,  # (T, n, d) NaN-suffix-padded
+    x: torch.Tensor,  # (T, n, l)
+    lens: torch.Tensor,  # (n,) int
+) -> torch.Tensor:
+    """:func:`model_loglik` in O(T) through the slice-pair features
+    (``em.py:1209``), as a 0-d tensor."""
+    ll = _suffix_logliks_markov_xla(params, z, x, lens)
+    return torch.logsumexp(torch.log(params.pi)[:, None] + ll, dim=0).sum()
 
 
 # ----------------------------------------------------------------------

@@ -3,17 +3,25 @@
 Counterpart of ``multimodal_trajectory_modeling_tpu/models/mixture.py``:
 the constructor (:69-174) with its RNG contract, the parameter plumbing
 (:180-199), the route predicate ``_needs_masked_filter_route`` (:201), the
-per-instance suffix gate (:238), ``_packed`` (:261), the
-``correspondence`` property (:334-346), the gzip-pickle cache
-(``to_pickle``/``from_pickle``, :348-425), ``train`` (:803-921) and
-``train_with_multiple_random_starts`` (:1012-1472), on the Markov route
-(suffix missingness, any T), the dense joint route (any missingness
-within its size gate) and the masked-filter route (any missingness past
-it).
+suffix gates (:214, :238), ``_packed`` (:261), ``n_free_params`` (:315),
+the ``correspondence`` property (:334-346), the gzip-pickle cache
+(``to_pickle``/``from_pickle``, :348-425), the complete-data inference
+family (:431-700: the per-cluster log-likelihoods, propensities over
+time, ``e_complete_data_log_lik``, ``model_log_likelihood``, ``aic``,
+``bic``, ``mle_cluster_assignment``, ``cluster_assignment_index``, the
+predictions), ``regress``/``regress_alpha`` (:756-773), ``E_step`` and
+``M_step`` (:779-801), ``train`` (:803-921) with its verbose transcript
+(:968-1010) and ``train_with_multiple_random_starts`` (:1012-1472), on
+the Markov route (suffix missingness, any T), the dense joint route (any
+missingness within its size gate) and the masked-filter route (any
+missingness past it).  The observed-only family (:706-750) is not ported
+yet and raises.
 
 The suffix gate is taken per instance, before the joint batch is packed,
 so the Markov route never packs it; it is the same gate as the JAX
-package's per-pattern ``_suffix_pattern_lens``.
+package's per-pattern ``_suffix_pattern_lens``.  The inference methods
+take it the same way past T(d+l) = 512, where the JAX package packs the
+joint batch to group its patterns first: the result is the same.
 
 RNG contract: the parameter inits draw from the global NumPy RNG in the
 reference's order, and the random assignment from
@@ -47,9 +55,13 @@ from multimodal_trajectory_modeling_tpu_torch.device import (
 )
 from multimodal_trajectory_modeling_tpu_torch.models import em
 from multimodal_trajectory_modeling_tpu_torch.models.kmeans import kmeans_labels
+from multimodal_trajectory_modeling_tpu_torch.ops._build import KernelError
 from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
 from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
+from multimodal_trajectory_modeling_tpu_torch.ops import moments as jmom
+from multimodal_trajectory_modeling_tpu_torch.ops import regression as rops
+from multimodal_trajectory_modeling_tpu_torch.utils.trace import EMTrace
 
 np_eps = np.finfo(float).eps
 
@@ -59,26 +71,14 @@ home_dir = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
 
-# public methods of the JAX class that this port does not have yet
-_INFERENCE_METHODS = frozenset(
+# public methods of the JAX class that this port does not have yet: the
+# observed-only family, which marginalizes the hidden states
+_OBSERVED_METHODS = frozenset(
     {
-        "aic",
-        "bic",
-        "cluster_assignment_index",
-        "cluster_propensities_over_time",
-        "conditional_log_likelihoods",
-        "conditional_log_likelihoods_first_T0_steps",
-        "e_complete_data_log_lik",
-        "initial_full_data_cluster_assignment",
-        "mle_cluster_assignment",
-        "model_log_likelihood",
         "observations_mle_cluster_assignment",
         "observed_cluster_propensities_over_time",
         "observed_conditional_log_likelihoods",
         "observed_condl_log_lik_first_T0_steps",
-        "one_step_ahead_predictions",
-        "one_step_ahead_predictions_no_history",
-        "predictions_from_initial_data",
     }
 )
 
@@ -136,7 +136,8 @@ class MMLinGaussSS_marginalizable:
         # what the multistart that chose this model did (see
         # train_with_multiple_random_starts)
         self.last_multistart = None
-        self._packed_cache = None
+        self.last_trace = None
+        self._device_cache = {}
 
     def _init_model(self, random_seed, init, alpha) -> None:
         """The constructor's draws, in the reference's order: parameter
@@ -206,8 +207,8 @@ class MMLinGaussSS_marginalizable:
         cand.time_stamp = _now()
         cand.last_trained = None
         cand.last_iterations = cand.last_status = None
-        cand.last_multistart = None
-        cand._packed_cache = None
+        cand.last_multistart = cand.last_trace = None
+        cand._device_cache = {}
         return cand
 
     def _kmeans(self, features: np.ndarray) -> np.ndarray:
@@ -219,9 +220,10 @@ class MMLinGaussSS_marginalizable:
         )
 
     def __getattr__(self, name):
-        if name in _INFERENCE_METHODS:
+        if name in _OBSERVED_METHODS:
             raise NotImplementedError(
-                f"{name} is not ported (ROADMAP Queue 1, items 3 and 6)"
+                f"{name} is not ported (ROADMAP Queue 1, item 6: the "
+                "observed-only family)"
             )
         raise AttributeError(
             f"{type(self).__name__!r} object has no attribute {name!r}"
@@ -268,27 +270,42 @@ class MMLinGaussSS_marginalizable:
             or n_patterns > 256
         )
 
-    def _packed(self):
-        """The training data on ``device`` for the dense route, packed
-        once per model: ``(z, x, v (n, T·(d+l)), patterns (P, D) bool,
-        pattern_id (n,) numpy int32)``, patterns in ``np.unique`` order."""
-        if self._packed_cache is None:
-            v_np = em.pack_joint(
-                torch.from_numpy(self.states), torch.from_numpy(self.observations)
-            ).numpy()
-            patterns, pid = gops.pattern_groups(v_np)
+    def _on_device(self, a, dtype=None):
+        return torch.as_tensor(a, dtype=dtype or self.dtype, device=self.device)
 
-            def on_device(a, dtype):
-                return torch.as_tensor(a, dtype=dtype, device=self.device)
-
-            self._packed_cache = (
-                on_device(self.states, self.dtype),
-                on_device(self.observations, self.dtype),
-                on_device(v_np, self.dtype),
-                on_device(patterns, torch.bool),
-                pid,
-            )
-        return self._packed_cache
+    def _packed(self, states=None, observations=None, T0=None):
+        """A dataset's first ``T0`` steps (all by default) packed for the
+        dense route: ``(T0, z, x, v (n, T0·(d+l)), patterns (P, D) bool,
+        pattern_id (n,) numpy int32)`` on ``device``, patterns in
+        ``np.unique`` order.  The model's own data (``states=None``) is
+        packed once per ``T0``, cached under ``("joint", T0)``, its z and x
+        views of :meth:`_masked_batch`."""
+        own = states is None
+        if own:
+            states, observations = self.states, self.observations
+        T0 = states.shape[0] if T0 is None else min(T0, states.shape[0])
+        key = ("joint", T0)
+        if own and key in self._device_cache:
+            return self._device_cache[key]
+        z = np.atleast_3d(states)[:T0].astype(float)
+        x = np.atleast_3d(observations)[:T0].astype(float)
+        v_np = em.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
+        patterns, pid = gops.pattern_groups(v_np)
+        if own:
+            z_dev, x_dev = (a[:T0] for a in self._masked_batch())
+        else:
+            z_dev, x_dev = self._on_device(z), self._on_device(x)
+        out = (
+            T0,
+            z_dev,
+            x_dev,
+            self._on_device(v_np),
+            self._on_device(patterns, torch.bool),
+            pid,
+        )
+        if own:
+            self._device_cache[key] = out
+        return out
 
     def _takes_masked_filter_route(self) -> bool:
         """:meth:`_needs_masked_filter_route` for this model's data.  Past
@@ -299,25 +316,23 @@ class MMLinGaussSS_marginalizable:
         T = self.n_timesteps
         if self._needs_masked_filter_route(T, 0):
             return True
-        return self._needs_masked_filter_route(T, self._packed()[3].shape[0])
+        return self._needs_masked_filter_route(T, self._packed()[4].shape[0])
 
     def _masked_batch(self):
-        """``(z, x)`` on ``device`` for the masked-filter route (from
-        :meth:`_packed` when it exists, so the batch is not copied
-        twice)."""
-        if self._packed_cache is not None:
-            return self._packed_cache[:2]
-        return tuple(
-            torch.as_tensor(a, dtype=self.dtype, device=self.device)
-            for a in (self.states, self.observations)
-        )
+        """``(z, x)`` of the model's data on ``device``, made once and
+        cached under ``("batch",)``; :meth:`_packed` takes its z and x from
+        here, so the card holds one copy of the batch."""
+        key = ("batch",)
+        if key not in self._device_cache:
+            self._device_cache[key] = (self._on_device(self.states), self._on_device(self.observations))
+        return self._device_cache[key]
 
     def _sorted_batch(self):
         """The packed data sorted by missingness pattern for
         :func:`em.train_em_sorted`: ``(order, sizes, z, x, v, patterns,
         pattern_id)``, rows in ``order`` (an (n,) index tensor on
         ``device``)."""
-        z, x, v, patterns, pid = self._packed()
+        _T0, z, x, v, patterns, pid = self._packed()
         order = np.argsort(pid, kind="stable")
         sizes = tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0]))
         pid_s = torch.as_tensor(pid[order], device=self.device)
@@ -346,6 +361,25 @@ class MMLinGaussSS_marginalizable:
         if not np.array_equal(z_all, expect) or lens.min() < 1:
             return None  # interior gaps
         return lens.astype(np.int32)
+
+    @property
+    def n_free_params(self) -> int:
+        """Free-parameter count: means and matrices fully, covariances by
+        their upper triangle."""
+        full = sum(
+            x.size
+            for x in [np.asarray(self.cluster_propensities)]
+            + list(self.init_state_means)
+            + list(self.transition_matrices)
+            + list(self.measurement_matrices)
+        )
+        tri = sum(
+            len(np.triu_indices_from(np.atleast_2d(x))[0])
+            for x in list(self.init_state_covs)
+            + list(self.transition_covs)
+            + list(self.measurement_covs)
+        )
+        return full + tri
 
     @property
     def correspondence(self) -> dict[int, str]:
@@ -457,8 +491,238 @@ class MMLinGaussSS_marginalizable:
         return mdl
 
     # ------------------------------------------------------------------
+    # the complete-data inference family
+    # ------------------------------------------------------------------
+
+    def conditional_log_likelihoods_first_T0_steps(
+        self, c: int, T0: int, *, states=None, observations=None
+    ) -> np.ndarray:
+        """Per-instance joint log-likelihood under cluster ``c`` over the
+        first ``T0`` steps."""
+        if not 1 <= T0 <= self.n_timesteps:
+            raise ValueError(f"T0 must be in [1, {self.n_timesteps}], got {T0}")
+        return self._all_cluster_logliks(T0, states, observations)[c]
+
+    def conditional_log_likelihoods(
+        self, c: int, *, states=None, observations=None
+    ) -> np.ndarray:
+        return self.conditional_log_likelihoods_first_T0_steps(
+            c, self.n_timesteps, states=states, observations=observations
+        )
+
+    def _all_cluster_logliks(self, T0, states, observations) -> np.ndarray:
+        """``(C, n)`` float64 log-likelihoods of a dataset's first ``T0``
+        steps (the model's own data by default).  Up to T0(d+l) = 512 the
+        dense joint (:func:`em.estep_logliks` on :meth:`_packed`); past
+        it, decided per instance without packing the joint batch, the O(T)
+        Markov factorization on suffix data
+        (:func:`em.suffix_logliks_markov`: K5's Φ on the card) and the
+        masked filter on any other (:func:`em.masked_logliks_kalman`,
+        K7)."""
+        own = states is None
+        z_np = self.states if own else np.atleast_3d(np.asarray(states, dtype=float))
+        x_np = self.observations if own else np.atleast_3d(np.asarray(observations, dtype=float))
+        T0 = min(T0, z_np.shape[0])
+        params = self._stacked_params()
+        if self._needs_masked_filter_route(T0, 0):
+            lens = self._suffix_instance_lens(z_np[:T0], x_np[:T0])
+            if own:
+                z, x = (a[:T0] for a in self._masked_batch())
+            else:
+                z, x = self._on_device(z_np[:T0]), self._on_device(x_np[:T0])
+            if lens is not None:
+                ll = em.suffix_logliks_markov(params, z, x, self._on_device(lens, torch.int32))
+            else:
+                ll = em.masked_logliks_kalman(params, z, x)
+        else:
+            _T0, _z, _x, v, patterns, pid = self._packed(states, observations, T0)
+            ll = em.estep_logliks(params, v, patterns, self._on_device(pid, torch.int32), T=T0)
+        return ll.cpu().numpy().astype(float)
+
+    def cluster_propensities_over_time(
+        self, *, states=None, observations=None
+    ) -> np.ndarray:
+        """``(T, n, C)`` posterior membership from the first t+1 steps."""
+        _T = min(
+            self.n_timesteps,
+            (self.states if states is None else states).shape[0],
+        )
+        probs = []
+        for t in range(_T):
+            ll = self._all_cluster_logliks(t + 1, states, observations)
+            logits = np.log(self.cluster_propensities)[:, None] + ll
+            probs.append(_softmax_cols(logits).T)  # (n, C)
+        pc_t = np.stack(probs, axis=0)
+        assert np.all(pc_t >= 0.0) and np.allclose(np.sum(pc_t, axis=-1), 1.0)
+        return pc_t
+
+    def e_complete_data_log_lik(
+        self, *, states=None, observations=None
+    ) -> float:
+        """The hard-assignment complete-data log-likelihood under a fresh
+        E assignment."""
+        ll = self._all_cluster_logliks(self.n_timesteps, states, observations)
+        a = np.argmax(np.log(self.cluster_propensities)[:, None] + ll, axis=0)
+        return float(
+            np.sum(np.log(self.cluster_propensities[a]))
+            + np.sum(ll[a, np.arange(ll.shape[1])])
+        )
+
+    def model_log_likelihood(
+        self, *, states=None, observations=None
+    ) -> float:
+        """The mixture's marginal log-likelihood Σ_i log Σ_c π_c L_ci
+        (logsumexp)."""
+        ll = self._all_cluster_logliks(self.n_timesteps, states, observations)
+        logits = np.log(self.cluster_propensities)[:, None] + ll
+        return float(np.sum(_logsumexp_cols(logits)))
+
+    def aic(self, states=None, observations=None) -> float:
+        return (
+            -2 * self.model_log_likelihood(states=states, observations=observations)
+            + 2 * self.n_free_params
+        )
+
+    def bic(self, states=None, observations=None) -> float:
+        n = self.n_data if states is None else states.shape[1]
+        return (
+            -2 * self.model_log_likelihood(states=states, observations=observations)
+            + np.log(n) * self.n_free_params
+        )
+
+    def mle_cluster_assignment(
+        self,
+        *,
+        return_probs: bool = False,
+        return_prenormalized_log_probs: bool = False,
+        states=None,
+        observations=None,
+    ):
+        """The hard MLE assignment (argmax of log π_c + ll_c); optionally
+        the normalized posterior and the prenormalized log-probabilities."""
+        ll = self._all_cluster_logliks(self.n_timesteps, states, observations)
+        prenorm = np.log(self.cluster_propensities)[:, None] + ll
+        assignments = np.argmax(prenorm, axis=0)
+        if not (return_probs or return_prenormalized_log_probs):
+            return assignments
+        probs = _softmax_cols(prenorm)
+        if not return_prenormalized_log_probs:
+            return assignments, probs
+        return assignments, probs, prenorm
+
+    def cluster_assignment_index(
+        self, *, cluster: str = "A", states=None, observations=None
+    ) -> np.ndarray:
+        """Prenormalized log-odds of membership in ``cluster``."""
+        return self.mle_cluster_assignment(
+            states=states,
+            observations=observations,
+            return_probs=True,
+            return_prenormalized_log_probs=True,
+        )[-1][self.inverse_correspondence[cluster]]
+
+    def _mix_one_step_predictions(self, states, assignment_probs):
+        last = states[-1]
+        nz = np.zeros((1, *states.shape[1:]))
+        nx = np.zeros((1, last.shape[0], self.d_observations))
+        for c in range(self.n_clusters):
+            zc = last @ self.transition_matrices[c]
+            xc = zc @ self.measurement_matrices[c]
+            w = assignment_probs[c][:, None]
+            nz += w * zc
+            nx += w * xc
+        return nz, nx
+
+    def one_step_ahead_predictions(self, *, states, observations):
+        """Posterior-weighted one-step-ahead forecasts."""
+        probs = self.mle_cluster_assignment(
+            states=states, observations=observations, return_probs=True
+        )[1]
+        assert probs.shape == (self.n_clusters, states[-1].shape[0])
+        return self._mix_one_step_predictions(states, probs)
+
+    def one_step_ahead_predictions_no_history(self, *, states, observations):
+        """The same forecasts, clusters assigned from the last step
+        only."""
+        z_nh = np.full_like(states, np.nan)
+        z_nh[-1] = states[-1]
+        x_nh = np.full_like(observations, np.nan)
+        x_nh[-1] = observations[-1]
+        probs = self.mle_cluster_assignment(
+            states=z_nh, observations=x_nh, return_probs=True
+        )[1]
+        assert probs.shape == (self.n_clusters, states[-1].shape[0])
+        return self._mix_one_step_predictions(states, probs)
+
+    def initial_full_data_cluster_assignment(
+        self, *, states=None, observations=None
+    ) -> np.ndarray:
+        """The assignment from the first step only."""
+        ll = self._all_cluster_logliks(1, states, observations)
+        return np.argmax(np.log(self.cluster_propensities)[:, None] + ll, axis=0)
+
+    def predictions_from_initial_data(self, *, states=None, observations=None):
+        """Each instance's assigned mean dynamics rolled forward from its
+        own initial state.  As in the reference, the initial states are
+        the training data's whatever the arguments."""
+        assignments = self.initial_full_data_cluster_assignment(
+            states=states, observations=observations
+        )
+        pred_z = np.zeros_like(self.states if states is None else states)
+        pred_x = np.zeros_like(self.observations if observations is None else observations)
+        Tz, Tx = pred_z.shape[0], pred_x.shape[0]
+        # every instance's chain at once (float64, on the device), the
+        # transition matrix gathered from its cluster
+        z0s = self._on_device(self.states[0], torch.float64)
+        A_by_instance = self._on_device(np.stack(self.transition_matrices), torch.float64)[
+            torch.as_tensor(assignments, device=self.device)
+        ]
+        chains = jmom.latent_means(Tz, z0s, A_by_instance).cpu().numpy()  # (n, Tz, d)
+        assert np.array_equal(chains[:, 0, :], self.states[0])
+        pred_z[:] = chains.transpose(1, 0, 2)[:Tz]
+        H_by_instance = np.stack(self.measurement_matrices)[assignments]
+        pred_x[:] = np.einsum("ntl,nld->tnd", chains[:, :Tx, :], H_by_instance)
+        return pred_z, pred_x
+
+    # ------------------------------------------------------------------
+    # regression helpers
+    # ------------------------------------------------------------------
+
+    @staticmethod
+    def regress(input_exogenous, output_endogenous, *, device="cuda", dtype=None):
+        """``Y | X ~ N(X A, S)`` by least squares over the rows with no
+        NaN: ``(A, S)`` as float64 arrays."""
+        return _regress(input_exogenous, output_endogenous, "lstsq", 0.0, device, dtype)
+
+    @staticmethod
+    def regress_alpha(input_exogenous, output_endogenous, alpha, *, device="cuda", dtype=None):
+        """:meth:`regress` with a ridge ``alpha``."""
+        return _regress(input_exogenous, output_endogenous, "ridge", alpha, device, dtype)
+
+    # ------------------------------------------------------------------
     # training
     # ------------------------------------------------------------------
+
+    def E_step(self) -> int:
+        """One E step; returns the number of changed assignments."""
+        new_assignment = self.mle_cluster_assignment()
+        n_switches = int(np.sum(np.not_equal(self.cluster_assignment, new_assignment)))
+        self.cluster_assignment = new_assignment
+        return n_switches
+
+    def M_step(self) -> None:
+        """One M step from the current assignment (:func:`em.mstep`, all
+        clusters at once)."""
+        z, x = self._masked_batch()
+        params = em.mstep(
+            z,
+            x,
+            torch.as_tensor(np.asarray(self.cluster_assignment), device=self.device),
+            n_clusters=self.n_clusters,
+            reg_mode="ridge" if self.alpha > 2 * np_eps else "lstsq",
+            alpha=float(self.alpha),
+        )
+        self._set_params(params)
 
     def train(
         self, *, verbose: bool = False, n_steps: int = 1000, fast: bool = False
@@ -474,14 +738,15 @@ class MMLinGaussSS_marginalizable:
         masked-filter route :func:`em.train_em_masked_kalman` (K7 per E
         step); else the pattern-sorted dense route
         :func:`em.train_em_sorted` (kernels K8 and K9), whose sort is
-        undone on return.  ``verbose=True``, ``MTM_MARKOV_OOC=1`` and
-        ``MTM_MARKOV_PRECOMP=0`` at long T raise
+        undone on return.  On suffix data ``MTM_MARKOV_PRECOMP=0`` builds
+        no Φ: every iteration rebuilds it (K4a, or past T·s = 512 K6 on
+        the raw batch).  ``verbose=True`` takes the host-stepped loop
+        (:meth:`E_step`, :meth:`M_step`, the objective printed after every
+        M step as the reference prints it, an :class:`EMTrace` in
+        ``last_trace``) and ignores ``fast``.  ``MTM_MARKOV_OOC=1`` raises
         ``NotImplementedError``."""
         if verbose:
-            raise NotImplementedError(
-                "train(verbose=True), the host-stepped loop, is not ported "
-                "(ROADMAP Queue 1, item 6)"
-            )
+            return self._train_verbose(n_steps=n_steps)
         if fast and os.environ.get("MTM_MARKOV_OOC") == "1":
             raise NotImplementedError(
                 "MTM_MARKOV_OOC=1, out-of-core training, is not ported "
@@ -490,18 +755,15 @@ class MMLinGaussSS_marginalizable:
         reg_mode = "ridge" if self.alpha > 2 * np_eps else "lstsq"
         fit = dict(n_steps=n_steps, reg_mode=reg_mode, alpha=float(self.alpha))
 
-        def on_device(a, dtype):
-            return torch.as_tensor(a, dtype=dtype, device=self.device)
-
-        assign0 = on_device(self.cluster_assignment, torch.int32)
+        assign0 = self._on_device(self.cluster_assignment, torch.int32)
         lens = self._suffix_instance_lens(self.states, self.observations) if fast else None
         if lens is not None:
             params, assign, iters, status = em.train_em_markov(
                 self._stacked_params(),
                 assign0,
-                on_device(self.states, self.dtype),
-                on_device(self.observations, self.dtype),
-                on_device(lens, torch.int32),
+                self._on_device(self.states),
+                self._on_device(self.observations),
+                self._on_device(lens, torch.int32),
                 **fit,
             )
         elif fast and self._takes_masked_filter_route():
@@ -517,10 +779,10 @@ class MMLinGaussSS_marginalizable:
             assign = torch.empty_like(assign_s)
             assign[order] = assign_s  # undo the sort
         else:
-            z, x, v, patterns, pid = self._packed()
+            _T0, z, x, v, patterns, pid = self._packed()
             params, assign, iters, status = em.train_em(
                 self._stacked_params(), assign0, z, x, v, patterns,
-                on_device(pid, torch.int32), **fit,
+                self._on_device(pid, torch.int32), **fit,
             )
         self.last_iterations, self.last_status = iters, status
         if status == em.STATUS_INIT_ABORT:
@@ -531,17 +793,54 @@ class MMLinGaussSS_marginalizable:
         self.last_trained = _now()
         return self
 
-    def _load_cached(self):
+    def _train_verbose(self, *, n_steps: int):
+        """Host-stepped EM with the reference's prints: the objective
+        rounded to 3 decimals after every M step, "Optimisation completed
+        in {i} steps." and "Encountered near-empty cluster."; records an
+        :class:`EMTrace` in ``last_trace``."""
+        trace = EMTrace()
+        self.last_trace = trace
+        self.last_iterations = self.last_status = None
+        counts = np.bincount(self.cluster_assignment, minlength=self.n_clusters)
+        if np.min(counts) <= 3:
+            print("Encountered near-empty cluster.")
+            return self
+        t0 = time.perf_counter()
+        self.M_step()
+        q = self.e_complete_data_log_lik()
+        print(np.round(q, 3))
+        trace.record(0, q, -1, time.perf_counter() - t0)
+        for i in range(n_steps):
+            t0 = time.perf_counter()
+            n_switches = self.E_step()
+            if n_switches == 0:
+                print(f"Optimisation completed in {i} steps.")
+                break
+            counts = np.bincount(self.cluster_assignment, minlength=self.n_clusters)
+            if np.min(counts) <= 3:
+                print("Encountered near-empty cluster.")
+                break
+            self.M_step()
+            q = self.e_complete_data_log_lik()
+            print(np.round(q, 3))
+            trace.record(i + 1, q, n_switches, time.perf_counter() - t0)
+        self.last_trained = _now()
+        return self
+
+    def _load_cached(self, verbose: bool = False):
         """The newest cached model of this data's hash, or None (the
-        cache is best-effort: a file that does not load is skipped)."""
+        cache is best-effort: a file that does not load is skipped).
+        ``verbose`` prints what the reference prints."""
         files = sorted(
             glob.glob(os.path.join(home_dir, "tmp", f"mmm-{self.hex_hash}*")),
             key=os.path.getmtime,
         )
         if not files:
+            if verbose:
+                print("No model found in cache.")
             return None
         try:
-            mdl = MMLinGaussSS_marginalizable.from_pickle(
+            best_mdl = MMLinGaussSS_marginalizable.from_pickle(
                 files[-1],
                 training_data={
                     "states": self.states,
@@ -550,9 +849,17 @@ class MMLinGaussSS_marginalizable:
                 device=self.device,
                 dtype=self.dtype,
             )
-        except (OSError, EOFError, KeyError, ValueError, pickle.UnpicklingError):
+        except (OSError, EOFError, KeyError, ValueError, pickle.UnpicklingError) as err:
+            if verbose:
+                print(f"Issue loading cached model -- encountered {err}")
             return None
-        return mdl if mdl.hex_hash == self.hex_hash else None
+        if best_mdl.hex_hash != self.hex_hash:
+            if verbose:
+                print("Issue loading cached model -- encountered ")
+            return None
+        if verbose:
+            print(f"Loaded model {best_mdl.last_trained=} from cache.")
+        return best_mdl
 
     def train_with_multiple_random_starts(
         self,
@@ -579,8 +886,8 @@ class MMLinGaussSS_marginalizable:
           T·s = 512: the pool on the canonical Φ, objectives from K3 on a
           wide canonical Φ), or, with one candidate or
           ``MTM_MULTISTART_FUSE`` ≤ 1, one after another
-          (:func:`em.train_em_markov`, objectives from K4a; at long T
-          those need the unported K6 and raise);
+          (:func:`em.train_em_markov`, objectives from K4a, past
+          T·s = 512 from K6 on the raw batch);
         - ``fast=True`` on other missingness past 256 patterns or
           T(d+l) = 512: one after another through
           :func:`em.train_em_masked_kalman`, or with ``MTM_MASKED_POOL=1``
@@ -602,16 +909,13 @@ class MMLinGaussSS_marginalizable:
         and status, and the pool's :class:`em.PoolStats` (None off the
         pool).
 
-        ``verbose=True``, the sequential branch at long T on the Markov
-        route and ``MTM_MULTICHIP=1`` on several cards raise
-        ``NotImplementedError``."""
-        if verbose:
-            raise NotImplementedError(
-                "verbose multistart, the host-stepped transcript, is not "
-                "ported (ROADMAP Queue 1, item 6)"
-            )
+        ``verbose=True`` trains the candidates one after another through
+        ``train(verbose=True)``, with the reference's transcript, and
+        ranks them by :meth:`e_complete_data_log_lik` (a candidate whose
+        training raises is skipped).  ``MTM_MULTICHIP=1`` on several cards
+        raises ``NotImplementedError``."""
         if use_cache:
-            cached = self._load_cached()
+            cached = self._load_cached(verbose)
             if cached is not None:
                 return cached
         if fast is None:
@@ -619,13 +923,8 @@ class MMLinGaussSS_marginalizable:
         lens = self._suffix_instance_lens(self.states, self.observations) if fast else None
         T, d, l = self.n_timesteps, self.d_states, self.d_observations
         r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
-        pooled = lens is not None and r_fuse > 1 and n_starts > 0
+        pooled = lens is not None and r_fuse > 1 and n_starts > 0 and not verbose
         packed_ok = em.markov_packed_ok(T, d, l)
-        if lens is not None and not pooled and not packed_ok:
-            raise NotImplementedError(
-                "the sequential long-T multistart scores its candidates with "
-                "the grid-over-T EM kernel K6, not ported (ROADMAP Queue 2)"
-            )
         if (
             pooled
             and os.environ.get("MTM_MULTICHIP") == "1"
@@ -637,23 +936,24 @@ class MMLinGaussSS_marginalizable:
                 "(ROADMAP Queue 1, item 9)"
             )
         masked = fast and lens is None and self._takes_masked_filter_route()
-        sorted_batch = self._sorted_batch() if fast and lens is None and not masked else None
+        sorted_batch = (
+            self._sorted_batch() if fast and lens is None and not masked and not verbose else None
+        )
 
         t0 = time.perf_counter()
         candidates = [self._candidate(0, "kmeans")]
         kmeans_s = time.perf_counter() - t0
         candidates += [self._candidate(100 + i) for i in range(n_starts)]
+        if verbose:
+            return self._verbose_multistart(candidates, n_steps, use_cache, return_objectives)
         reg_mode = "ridge" if self.alpha > 2 * np_eps else "lstsq"
         fit = dict(n_steps=n_steps, reg_mode=reg_mode, alpha=float(self.alpha))
 
-        def on_device(a, dtype):
-            return torch.as_tensor(a, dtype=dtype, device=self.device)
-
         pool_stats = None
         if lens is not None:
-            z = on_device(self.states, self.dtype)
-            x = on_device(self.observations, self.dtype)
-            lens_d = on_device(lens, torch.int32)
+            z = self._on_device(self.states)
+            x = self._on_device(self.observations)
+            lens_d = self._on_device(lens, torch.int32)
             n = self.n_data
             z_t = z.permute(0, 2, 1).reshape(T * d, n)
             x_t = x.permute(0, 2, 1).reshape(T * l, n)
@@ -688,7 +988,7 @@ class MMLinGaussSS_marginalizable:
             for cand in candidates:
                 res = em.train_em_markov(
                     cand._stacked_params(),
-                    on_device(cand.cluster_assignment, torch.int32),
+                    self._on_device(cand.cluster_assignment, torch.int32),
                     z,
                     x,
                     lens_d,
@@ -710,7 +1010,7 @@ class MMLinGaussSS_marginalizable:
             else:
                 results = [
                     em.train_em_masked_kalman(
-                        c._stacked_params(), on_device(c.cluster_assignment, torch.int32),
+                        c._stacked_params(), self._on_device(c.cluster_assignment, torch.int32),
                         z, x, packed=packed, **fit,
                     )
                     for c in candidates
@@ -725,7 +1025,7 @@ class MMLinGaussSS_marginalizable:
             for cand in candidates:
                 params_c, assign_s, iters_c, status_c = em.train_em_sorted(
                     cand._stacked_params(),
-                    on_device(cand.cluster_assignment, torch.int32)[order],
+                    self._on_device(cand.cluster_assignment, torch.int32)[order],
                     z, x, v, patterns, sizes=sizes, **fit,
                 )
                 assign_c = torch.empty_like(assign_s)
@@ -735,11 +1035,11 @@ class MMLinGaussSS_marginalizable:
                     float(em.complete_data_loglik(params_c, v, patterns, pid, T=T))
                 )
         else:
-            z, x, v, patterns, pid = self._packed()
+            _T0, z, x, v, patterns, pid = self._packed()
             params_b, assign_b, iters_b, status_b, obj_b = em.train_em_multistart(
                 em.stack_params([c._stacked_params() for c in candidates]),
-                on_device(np.stack([c.cluster_assignment for c in candidates]), torch.int32),
-                z, x, v, patterns, on_device(pid, torch.int32), **fit,
+                self._on_device(np.stack([c.cluster_assignment for c in candidates]), torch.int32),
+                z, x, v, patterns, self._on_device(pid, torch.int32), **fit,
             )
             results = list(zip(
                 em.unstack_params(params_b), assign_b, iters_b.tolist(), status_b.tolist()
@@ -773,3 +1073,62 @@ class MMLinGaussSS_marginalizable:
         if return_objectives:
             return best_mdl, objectives
         return best_mdl
+
+
+    @staticmethod
+    def _verbose_multistart(candidates, n_steps, use_cache, return_objectives):
+        """The reference's verbose multistart: each candidate through
+        ``train(verbose=True)`` in turn, the first strictly greater
+        objective wins, a candidate whose training raises is skipped as a
+        degenerate start.  A kernel that fails to build, load or launch
+        (:class:`_build.KernelError`) is no degenerate start and
+        propagates."""
+        best_mdl = candidates[0]
+        try:
+            best_mdl = best_mdl.train(verbose=True, n_steps=n_steps)
+        except KernelError:
+            raise
+        except Exception:  # noqa: BLE001 — a degenerate start, keep going
+            pass
+        objective_list = [best_mdl.e_complete_data_log_lik()]
+        for cand in candidates[1:]:
+            try:
+                mdl = cand.train(verbose=True, n_steps=n_steps)
+                objective_list.append(mdl.e_complete_data_log_lik())
+                if mdl.e_complete_data_log_lik() > best_mdl.e_complete_data_log_lik():
+                    best_mdl = mdl
+            except KernelError:
+                raise
+            except Exception:  # noqa: BLE001
+                pass
+        if not np.isfinite(best_mdl.e_complete_data_log_lik()):
+            raise Exception("training failed")
+        if use_cache:
+            best_mdl.to_pickle()
+        if return_objectives:
+            return best_mdl, np.array(objective_list)
+        return best_mdl
+
+
+def _regress(X, Y, mode, alpha, device, dtype):
+    dev = resolve_device(device)
+    dt = resolve_dtype(dev, dtype)
+    A, S = rops.regress(
+        torch.as_tensor(np.atleast_2d(X), dtype=dt, device=dev),
+        torch.as_tensor(np.atleast_2d(Y), dtype=dt, device=dev),
+        mode=mode,
+        alpha=alpha,
+    )
+    return A.cpu().numpy().astype(float), S.cpu().numpy().astype(float)
+
+
+def _softmax_cols(logits: np.ndarray) -> np.ndarray:
+    """Column-wise softmax of a (C, n) matrix of log-probabilities."""
+    z = logits - np.max(logits, axis=0, keepdims=True)
+    e = np.exp(z)
+    return e / np.sum(e, axis=0, keepdims=True)
+
+
+def _logsumexp_cols(logits: np.ndarray) -> np.ndarray:
+    mx = np.max(logits, axis=0)
+    return mx + np.log(np.sum(np.exp(logits - mx[None, :]), axis=0))

@@ -29,6 +29,16 @@ _FLAGS = (
     "-Xptxas", "-v",
 )
 
+
+class KernelError(RuntimeError):
+    """A kernel failed to build, load or launch.  Callers that skip a
+    numerically degenerate run (a singular solve) re-raise this one."""
+
+
+class KernelArgumentError(KernelError, ValueError):
+    """A launch function refused its arguments."""
+
+
 _P = ctypes.c_void_p
 _I = ctypes.c_int
 _LL = ctypes.c_longlong
@@ -58,6 +68,10 @@ _SIGNATURES = {
     "mtm_masked_kalman": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "mtm_markov_features_longT_max_dim": [],
     "mtm_markov_features_longT": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "mtm_markov_em_batch": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _LL, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
 }
 
 
@@ -66,7 +80,7 @@ def _nvcc() -> str:
     if path is None and os.path.exists("/usr/local/cuda/bin/nvcc"):
         path = "/usr/local/cuda/bin/nvcc"
     if path is None:
-        raise RuntimeError(
+        raise KernelError(
             "nvcc was not found on PATH or in /usr/local/cuda/bin; the CUDA "
             "kernels cannot be built"
         )
@@ -117,7 +131,7 @@ def _compile(out: Path) -> None:
         obj.unlink(missing_ok=True)
     out.with_suffix(".log").write_text("\n".join(log))
     if failed:
-        raise RuntimeError("nvcc failed: " + "\n".join(failed))
+        raise KernelError("nvcc failed: " + "\n".join(failed))
 
 
 @functools.cache
@@ -126,7 +140,10 @@ def library() -> ctypes.CDLL:
     out = library_path()
     if not out.exists():
         _compile(out)
-    lib = ctypes.CDLL(str(out))
+    try:
+        lib = ctypes.CDLL(str(out))
+    except OSError as err:
+        raise KernelError(f"cannot load {out}: {err}") from err
     for name, argtypes in _SIGNATURES.items():
         fn = getattr(lib, name)
         fn.argtypes = argtypes
@@ -137,6 +154,6 @@ def library() -> ctypes.CDLL:
 def check(rc: int, what: str) -> None:
     """Raise if a launch function returned a nonzero code."""
     if rc == -1:
-        raise ValueError(f"{what}: the kernel refused its arguments")
+        raise KernelArgumentError(f"{what}: the kernel refused its arguments")
     if rc != 0:
-        raise RuntimeError(f"{what}: CUDA error {rc} at launch")
+        raise KernelError(f"{what}: CUDA error {rc} at launch")

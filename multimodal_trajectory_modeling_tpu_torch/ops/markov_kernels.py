@@ -1,7 +1,8 @@
 """Markov EM kernels: Φ materialization (K2; K5 at any T), the Φ-reading
-EM iteration for one restart (K1) and for R restarts (K3), and the EM
+EM iteration for one restart (K1) and for R restarts (K3), the EM
 iteration that rebuilds Φ from the packed batch on every call, for one
-restart (K4a) and for R restarts (K4b).
+restart (K4a) and for R restarts (K4b), and the EM passes over the raw
+NaN-padded batch at any T (K6, K10, K11).
 
 Counterpart of ``multimodal_trajectory_modeling_tpu/ops/pallas_markov.py``,
 whose Pallas TPU kernels become hand-written CUDA kernels:
@@ -15,7 +16,13 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
   ``markov_em_fused_packed_multi`` (:898) → ``csrc/markov_em_multi.cu``,
   one kernel body that reads Φ from device memory (K3) or builds each
   instance's Φ column in shared memory with K2's row build
-  (``csrc/markov_common.cuh``, K4a/K4b).
+  (``csrc/markov_common.cuh``, K4a/K4b);
+- K6 ``markov_em_fused_longT`` (:1148), K10 ``markov_assign_suffix``
+  (:245) and K11 ``markov_em_fused`` (:438) → ``csrc/markov_em_batch.cu``,
+  one kernel body that builds each instance's canonical Φ column in
+  shared memory with K5's row build (``csrc/markov_longT_rows.cuh``) and
+  runs K1's step on it; the grouped weights of K6 and K10 are folded into
+  the canonical layout first (:func:`..markov.canonical_weights`).
 
 - Layout (``markov_packed_spec``, ``pack_markov_u``,
   ``markov_compact_spec``): the batch is packed per time step as
@@ -33,10 +40,10 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
 - Storage (``PhiQuant``, ``quantize_phi``): Φ may be stored int16 with one
   scale per row; the scales fold into the score weights and unfold from
   the statistics, so K1 and K3 read half the bytes.
-- Argmax rules follow the replaced kernels: K1 and K4a take the first
-  maximum with NaN counted as the maximum (``jnp.argmax``); K3 and K4b a
-  strict ``>`` scan over the clusters, so a NaN never wins (and a NaN at
-  cluster 0 stays).  A degenerate cluster has NaN weights, so the two
+- Argmax rules follow the replaced kernels: K1, K4a, K6, K10 and K11
+  take the first maximum with NaN counted as the maximum
+  (``jnp.argmax``); K3 and K4b a strict ``>`` scan over the clusters, so
+  a NaN never wins (and a NaN at cluster 0 stays).  A degenerate cluster has NaN weights, so the two
   rules give different assignments there.
 - Kernels: each wrapper takes its plain torch version for CPU tensors
   only.  For CUDA tensors it launches the kernel or raises.  Each wrapper
@@ -52,11 +59,18 @@ import numpy as np
 import torch
 
 from multimodal_trajectory_modeling_tpu_torch.ops import _build
+from multimodal_trajectory_modeling_tpu_torch.ops.markov import canonical_weights
 
 __all__ = [
     "PhiQuant",
     "dequantize_phi",
     "fold_weights",
+    "markov_assign_suffix",
+    "markov_assign_suffix_plain",
+    "markov_em_fused",
+    "markov_em_fused_longT",
+    "markov_em_fused_longT_plain",
+    "markov_em_fused_plain",
     "markov_compact_spec",
     "markov_em_compact",
     "markov_em_compact_plain",
@@ -593,29 +607,39 @@ def _em_plain(phi, phi_w, prev, wc, *, assign_mode, strict, forced=False):
     statistics.  ``phi_w`` is Φ in the weights' dtype; ``phi`` gives the
     statistics' type: exact integer sums (float64, then int64) for int16
     Φ.  A ``forced`` slot takes ``prev`` with switches and objective 0."""
-    C = wc.shape[0]
-    dtype = wc.dtype
-    valid = prev >= 0
-    if assign_mode == "prev" or forced:
-        na = prev
-        switches = torch.zeros((), dtype=torch.int32, device=phi.device)
-        obj = torch.zeros((), dtype=dtype, device=phi.device)
-    else:
-        scores = wc @ phi_w  # (C, n)
-        best, na = (_argmax_strict if strict else _argmax_first)(scores)
-        switches = ((na != prev) & valid).sum().to(torch.int32)
-        obj = torch.where(valid, best, 0.0).sum()
-    clusters = torch.arange(C, dtype=na.dtype, device=na.device)
-    onehot = (na[None, :] == clusters[:, None]) & valid[None, :]  # (C, n)
-    counts = onehot.sum(dim=1).to(torch.int32)
+    mode = "prev" if forced else assign_mode
+    scores = wc @ phi_w if mode == "argmax" else None  # (C, n)
+    na, switches, obj = _estep_outputs(scores, prev, mode, wc.dtype, strict=strict)
+    assign, counts, onehot = _assign_counts(na, prev, wc.shape[0])
     if phi.dtype == torch.int16:
-        macc = (phi_w.to(torch.float64) @ onehot.T.to(torch.float64)).to(
-            torch.int64
-        )
+        macc = (phi_w.to(torch.float64) @ onehot.to(torch.float64)).to(torch.int64)
     else:
-        macc = phi_w @ onehot.T.to(dtype)
-    assign = torch.where(valid, na, C).to(torch.int32)
+        macc = phi_w @ onehot.to(wc.dtype)
     return assign, counts, switches, macc, obj
+
+
+def _estep_outputs(scores, prev, assign_mode, dtype, *, strict=False):
+    """``(na, switches, obj)`` of the argmax over the (C, n) scores, the
+    first maximum with NaN winning or (``strict``) a strict ``>`` scan;
+    ``prev`` itself, 0 and 0 under ``assign_mode="prev"``, where ``scores``
+    is not read."""
+    valid = prev >= 0
+    if assign_mode == "prev":
+        return (prev, torch.zeros((), dtype=torch.int32, device=prev.device),
+                torch.zeros((), dtype=dtype, device=prev.device))
+    best, na = (_argmax_strict if strict else _argmax_first)(scores)
+    switches = ((na != prev) & valid).sum().to(torch.int32)
+    return na, switches, torch.where(valid, best, 0.0).sum()
+
+
+def _assign_counts(na, prev, C):
+    """``(assign, counts, onehot (n, C))``: ``C`` where ``prev < 0``,
+    which counts nowhere."""
+    valid = prev >= 0
+    assign = torch.where(valid, na, C).to(torch.int32)
+    clusters = torch.arange(C, dtype=torch.int32, device=prev.device)
+    onehot = (assign[:, None] == clusters[None, :]) & valid[:, None]
+    return assign, onehot.sum(dim=0).to(torch.int32), onehot
 
 
 def _check_mode(assign_mode):
@@ -1165,3 +1189,346 @@ def markov_em_fused_packed_multi(
 
 
 markov_em_fused_packed_multi.launches = 0
+
+# ----------------------------------------------------------------------
+# K6, K10, K11: EM passes over the raw NaN-padded batch
+# ----------------------------------------------------------------------
+
+
+def _check_batch_args(z_t, x_t, lens, prev, T, d, l, assign_mode="argmax"):
+    _check_longT_args(z_t, x_t, lens, T, d, l)
+    if prev.shape != lens.shape or prev.device != lens.device:
+        raise ValueError(f"prev must be ({lens.shape[0]},) on the batch's device, got {tuple(prev.shape)}")
+    _check_mode(assign_mode)
+
+
+def _kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """``(p, n), (q, n) → (p·q, n)``, row ``i·q + j`` = ``a_i ⊙ b_j``."""
+    return (a[:, None, :] * b[None, :, :]).reshape(-1, a.shape[1])
+
+
+def _fin(a: torch.Tensor) -> torch.Tensor:
+    return torch.where(torch.isfinite(a), a, 0.0)
+
+
+class _Batch:
+    """The transposed batch per step, as the replaced kernels read it:
+    ``z(t)``, ``x(t)`` with non-finite values 0, the transition mask
+    ``vm(t) = (len > t+1) & (t < T-1)``, and the end features
+    ``[z_0⊗z_0, z_0, len, 1]``."""
+
+    def __init__(self, z_t, x_t, lens, T, d, l):
+        self.T, self.n, self.dtype = T, z_t.shape[1], z_t.dtype
+        self.z3, self.x3, self.lens = z_t.reshape(T, d, self.n), x_t.reshape(T, l, self.n), lens
+
+    def z(self, t):
+        return _fin(self.z3[t])
+
+    def x(self, t):
+        return _fin(self.x3[t])
+
+    def vm(self, t):
+        return ((self.lens > t + 1) & (t < self.T - 1)).to(self.dtype)[None, :]
+
+    def end(self):
+        z0 = self.z(0)
+        ones = torch.ones((1, self.n), dtype=self.dtype, device=z0.device)
+        return torch.cat([_kron(z0, z0), z0, self.lens.to(self.dtype)[None, :], ones])
+
+
+def markov_em_fused_longT_plain(
+    z_t, x_t, lens, prev_assign, W1, W2, W3, *, T: int, d: int, l: int,
+    assign_mode: str = "argmax",
+):
+    """Plain torch version of :func:`markov_em_fused_longT`, the JAX
+    kernels' algebra step by step (``pallas_markov.py:992``, ``:1057``):
+    per t the grouped score GEMMs ``W1·[z⊗z, x⊗x, z⊗x] + vm·W2·[z⊗z,
+    z⊗zn]`` (plus ``W3`` on the end features at t = 0), the first-max
+    argmax, then the statistics as per-t GEMMs against the one-hot, the
+    vm_{t+1} groups masked (g2, g3 = z⊗(zn·vm), g7)."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    b = _Batch(z_t, x_t, lens, T, d, l)
+    C, dtype = W1.shape[0], z_t.dtype
+    scores = None
+    if assign_mode == "argmax":
+        scores = torch.zeros((C, b.n), dtype=dtype, device=z_t.device)
+        for t in range(T):
+            zc, zn, xc = b.z(t), b.z(min(t + 1, T - 1)), b.x(t)
+            zz = _kron(zc, zc)
+            acc = W1 @ torch.cat([zz, _kron(xc, xc), _kron(zc, xc)])
+            acc = acc + b.vm(t) * (W2 @ torch.cat([zz, _kron(zc, zn)]))
+            scores = scores + acc
+            if t == 0:
+                scores = scores + W3 @ b.end()
+    na, switches, obj = _estep_outputs(scores, prev_assign, assign_mode, dtype)
+    assign, counts, onehot = _assign_counts(na, prev_assign, C)
+    o = _canonical_offsets(d, l)
+    oh = onehot.to(dtype)
+    g = torch.zeros((o["F"], C), dtype=dtype, device=z_t.device)
+
+    def add(key, rows):
+        g[o[key] : o[key] + rows.shape[0]] += rows
+
+    for t in range(T):
+        zc, zn, xc, vm = b.z(t), b.z(min(t + 1, T - 1)), b.x(t), b.vm(t)
+        zz = _kron(zc, zc)
+        ga = torch.cat([zz, _kron(xc, xc), _kron(zc, xc), zc, xc]) @ oh
+        gb = torch.cat([vm * zz, _kron(zc, zn * vm), vm * zc]) @ oh
+        for key, rows in zip(("g1", "g4", "g5", "g8", "g9"), ga.split([d * d, l * l, d * l, d, l])):
+            add(key, rows)
+        for key, rows in zip(("g2", "g3", "g7"), gb.split([d * d, d * d, d])):
+            add(key, rows)
+        if t == 0:
+            gc = b.end() @ oh
+            for key, rows in zip(("g6", "g10", "len", "one"), gc.split([d * d, d, 1, 1])):
+                add(key, rows)
+    return assign, counts, switches, g, obj
+
+
+def markov_assign_suffix_plain(
+    z_t, x_t, lens, prev_assign, W1, W2, W3, *, T: int, d: int, l: int
+):
+    """Plain torch version of :func:`markov_assign_suffix`, the JAX
+    kernel's features in its order (``pallas_markov.py:165``): per t
+    ``W1·[z⊗z, x⊗x, z⊗x]``, per t < T-1 ``W2·[vm·z⊗z, z⊗z_{t+1}]`` (the
+    missing z_{t+1} read as 0), then ``W3`` on the end features; the
+    first-max argmax."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l)
+    b = _Batch(z_t, x_t, lens, T, d, l)
+    scores = torch.zeros((W1.shape[0], b.n), dtype=z_t.dtype, device=z_t.device)
+    for t in range(T):
+        zc, xc = b.z(t), b.x(t)
+        scores = scores + W1 @ torch.cat([_kron(zc, zc), _kron(xc, xc), _kron(zc, xc)])
+    for t in range(T - 1):
+        zc = b.z(t)
+        scores = scores + W2 @ torch.cat([b.vm(t) * _kron(zc, zc), _kron(zc, b.z(t + 1))])
+    scores = scores + W3 @ b.end()
+    na, switches, _obj = _estep_outputs(scores, prev_assign, "argmax", z_t.dtype)
+    assign, counts, _onehot = _assign_counts(na, prev_assign, W1.shape[0])
+    return assign, counts, switches
+
+
+def markov_em_fused_plain(
+    z_t, x_t, lens, prev_assign, Wg, *, T: int, d: int, l: int,
+    assign_mode: str = "argmax",
+):
+    """Plain torch version of :func:`markov_em_fused`, the JAX kernel's
+    algebra (``pallas_markov.py:320``): the g-layout features summed over
+    t (g2 and g7 under vm_{t+1}, g3 = Σ_{t<T-1} z_t⊗z_{t+1} with a
+    missing z_{t+1} read as 0), the scores ``Wg·g``, the first-max argmax
+    and the statistics ``g·onehotᵀ``."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    b = _Batch(z_t, x_t, lens, T, d, l)
+    o = _canonical_offsets(d, l)
+    dd = d * d
+    g = torch.zeros((o["F"], b.n), dtype=z_t.dtype, device=z_t.device)
+    for t in range(T):
+        zc, xc = b.z(t), b.x(t)
+        zz = _kron(zc, zc)
+        g[o["g1"] : o["g1"] + dd] += zz
+        g[o["g4"] : o["g4"] + l * l] += _kron(xc, xc)
+        g[o["g5"] : o["g5"] + d * l] += _kron(zc, xc)
+        g[o["g8"] : o["g8"] + d] += zc
+        g[o["g9"] : o["g9"] + l] += xc
+        if t < T - 1:
+            vm = b.vm(t)
+            g[o["g2"] : o["g2"] + dd] += vm * zz
+            g[o["g3"] : o["g3"] + dd] += _kron(zc, b.z(t + 1))
+            g[o["g7"] : o["g7"] + d] += vm * zc
+    end = b.end()
+    g[o["g6"] : o["g6"] + dd] = end[:dd]
+    g[o["g10"] :] = end[dd:]
+    return _em_plain(g, g, prev_assign, Wg, assign_mode=assign_mode, strict=False)
+
+
+# Instances per block of the batch kernel: enough blocks to fill the card
+# (about four per SM) while the per-block statistics partials stay few.
+_BATCH_BLOCKS = 528
+
+
+def _batch_chunk(n: int) -> int:
+    """The batch kernel's instances per block: ``n`` over 528 blocks,
+    rounded up to a multiple of 64, between 256 and 1024."""
+    c = -(-n // _BATCH_BLOCKS)
+    return min(1024, max(256, 64 * -(-c // 64)))
+
+
+def _launch_batch(z_t, x_t, lens, prev, Wc, *, T, d, l, argmax, stats, what):
+    """Launch ``mtm_markov_em_batch`` with the canonical weights ``Wc (C,
+    F)``; returns ``(assign, counts, switches, g (F, C), obj)``."""
+    kinds = {torch.float32: 0, torch.float64: 1}
+    if z_t.dtype not in kinds or x_t.dtype != z_t.dtype or Wc.dtype != z_t.dtype:
+        raise ValueError(
+            f"z_t, x_t and the weights must share float32 or float64, got {z_t.dtype}, "
+            f"{x_t.dtype}, {Wc.dtype}"
+        )
+    if lens.dtype != torch.int32 or prev.dtype != torch.int32:
+        raise ValueError("lens and prev must be int32")
+    if not all(t.is_contiguous() for t in (z_t, x_t, lens, prev)):
+        raise ValueError("z_t, x_t, lens and prev must be contiguous")
+    if Wc.device != z_t.device:
+        raise ValueError("the weights must be on the batch's device")
+    n, C = z_t.shape[1], Wc.shape[0]
+    if n == 0:
+        raise ValueError("empty batch")
+    lib = _build.library()
+    _check_clusters(lib, C)
+    if max(d, l) > lib.mtm_markov_features_longT_max_dim():
+        raise ValueError(f"d={d}, l={l}: the batch kernel takes at most {lib.mtm_markov_features_longT_max_dim()} of each")
+    F = Wc.shape[1]
+    F_pad = _canonical_rows(d, l)
+    wc = torch.zeros((C, F_pad), dtype=Wc.dtype, device=Wc.device)
+    wc[:, :F] = Wc
+    chunk = _batch_chunk(n)
+    nblocks = -(-n // chunk)
+    empty = functools.partial(torch.empty, device=z_t.device)
+    part_stats = empty((nblocks if stats else 1, F_pad, C), dtype=z_t.dtype)
+    part_counts = empty((nblocks, C), dtype=torch.int32)
+    part_sw = empty((nblocks,), dtype=torch.int32)
+    part_obj = empty((nblocks,), dtype=z_t.dtype)
+    assign = empty((n,), dtype=torch.int32)
+    counts = empty((C,), dtype=torch.int32)
+    switches = empty((), dtype=torch.int32)
+    macc = empty((F_pad, C), dtype=z_t.dtype)
+    obj = empty((), dtype=z_t.dtype)
+    rc = lib.mtm_markov_em_batch(
+        _device_index(z_t),
+        kinds[z_t.dtype],
+        z_t.data_ptr(),
+        x_t.data_ptr(),
+        lens.data_ptr(),
+        prev.data_ptr(),
+        wc.data_ptr(),
+        assign.data_ptr(),
+        part_stats.data_ptr(),
+        part_counts.data_ptr(),
+        part_sw.data_ptr(),
+        part_obj.data_ptr(),
+        macc.data_ptr(),
+        counts.data_ptr(),
+        switches.data_ptr(),
+        obj.data_ptr(),
+        n,
+        T,
+        d,
+        l,
+        F_pad,
+        C,
+        chunk,
+        int(argmax),
+        int(stats),
+        torch.cuda.current_stream(z_t.device).cuda_stream,
+    )
+    _build.check(rc, what)
+    return assign, counts, switches, macc[:F], obj
+
+
+def markov_em_fused_longT(
+    z_t: torch.Tensor,  # (T·d, n) transposed latent batch (NaN-padded)
+    x_t: torch.Tensor,  # (T·l, n)
+    lens: torch.Tensor,  # (n,) int32
+    prev_assign: torch.Tensor,  # (n,) int32; < 0 marks rows to leave out
+    W1: torch.Tensor,  # (C, d²+l²+dl) per-step weights
+    W2: torch.Tensor,  # (C, 2d²) vm_{t+1} weights
+    W3: torch.Tensor,  # (C, d²+d+2) end weights (+ log π folded)
+    *,
+    T: int,
+    d: int,
+    l: int,
+    assign_mode: str = "argmax",
+):
+    """K6: one EM pass over the raw batch at any T, with the contract of
+    ``pallas_markov.py:1148``: ``(assign (n,) int32, counts (C,) int32,
+    switches () int32, g (F, C), obj ())``: first-max assignments (``prev``
+    itself under ``assign_mode="prev"``, with switches and objective 0),
+    ``C`` where ``prev < 0`` (such rows count nowhere), the g-layout
+    statistics and Σ max score over the valid rows.  The contract is
+    suffix data: each instance's NaNs start at its length, where the
+    kernel's transition products equal the JAX kernels'.  CUDA tensors
+    launch ``csrc/markov_em_batch.cu`` on the folded canonical weights
+    (float32 or float64, contiguous, int32 lens and prev, d and l up to
+    8); CPU tensors take the plain version."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    if z_t.device.type == "cpu":
+        return markov_em_fused_longT_plain(
+            z_t, x_t, lens, prev_assign, W1, W2, W3, T=T, d=d, l=l, assign_mode=assign_mode
+        )
+    if z_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {z_t.device}")
+    out = _launch_batch(
+        z_t, x_t, lens, prev_assign, canonical_weights(W1, W2, W3, d=d, l=l), T=T, d=d, l=l,
+        argmax=assign_mode == "argmax", stats=True, what="markov_em_fused_longT",
+    )
+    markov_em_fused_longT.launches += 1
+    return out
+
+
+markov_em_fused_longT.launches = 0
+
+
+def markov_assign_suffix(
+    z_t: torch.Tensor,  # (T·d, n) transposed latent batch (NaN-padded)
+    x_t: torch.Tensor,  # (T·l, n)
+    lens: torch.Tensor,  # (n,) int32
+    prev_assign: torch.Tensor,  # (n,) int32; < 0 marks rows to leave out
+    W1: torch.Tensor,
+    W2: torch.Tensor,
+    W3: torch.Tensor,  # log π folded into W3[:, -1]
+    *,
+    T: int,
+    d: int,
+    l: int,
+):
+    """K10: the E step over the raw batch, with the contract of
+    ``pallas_markov.py:245``: ``(assign (n,) int32, counts (C,) int32,
+    switches () int32)``, the first-max argmax of ``markov_suffix_logliks
+    + log π`` on suffix data.  CUDA tensors launch
+    ``csrc/markov_em_batch.cu`` without its statistics; CPU tensors take
+    the plain version."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l)
+    if z_t.device.type == "cpu":
+        return markov_assign_suffix_plain(z_t, x_t, lens, prev_assign, W1, W2, W3, T=T, d=d, l=l)
+    if z_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {z_t.device}")
+    assign, counts, switches, _g, _obj = _launch_batch(
+        z_t, x_t, lens, prev_assign, canonical_weights(W1, W2, W3, d=d, l=l), T=T, d=d, l=l,
+        argmax=True, stats=False, what="markov_assign_suffix",
+    )
+    markov_assign_suffix.launches += 1
+    return assign, counts, switches
+
+
+markov_assign_suffix.launches = 0
+
+
+def markov_em_fused(
+    z_t: torch.Tensor,  # (T·d, n) transposed latent batch (NaN-padded)
+    x_t: torch.Tensor,  # (T·l, n)
+    lens: torch.Tensor,  # (n,) int32
+    prev_assign: torch.Tensor,  # (n,) int32; < 0 marks rows to leave out
+    Wg: torch.Tensor,  # (C, F) g-layout weights (+ log π folded)
+    *,
+    T: int,
+    d: int,
+    l: int,
+    assign_mode: str = "argmax",
+):
+    """K11: K6's contract from the canonical weights ``Wg (C, F)``
+    (``pallas_markov.py:438``): ``(assign, counts, switches, g (F, C),
+    obj)``; under ``assign_mode="prev"`` the statistics are taken under
+    ``prev`` itself.  CUDA tensors launch ``csrc/markov_em_batch.cu``; CPU
+    tensors take the plain version."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    if z_t.device.type == "cpu":
+        return markov_em_fused_plain(z_t, x_t, lens, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode)
+    if z_t.device.type != "cuda":
+        raise ValueError(f"unsupported device {z_t.device}")
+    out = _launch_batch(
+        z_t, x_t, lens, prev_assign, Wg, T=T, d=d, l=l,
+        argmax=assign_mode == "argmax", stats=True, what="markov_em_fused",
+    )
+    markov_em_fused.launches += 1
+    return out
+
+
+markov_em_fused.launches = 0

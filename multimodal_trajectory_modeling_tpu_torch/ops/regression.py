@@ -6,9 +6,10 @@ Counterpart of ``multimodal_trajectory_modeling_tpu/ops/regression.py``:
 ``mean_cov_from_stats`` (:263), and the statistics of the dense M step:
 ``weighted_regression_stats`` (:63), its time-batched (:91) and Gram
 (:117) forms, ``masked_moment_stats`` (:250) and ``masked_mean_and_cov``
-(:278).  A row (or pair) with a non-finite coordinate is dropped by a
-where-select, never by a multiply with a 0/1 mask, so an ``inf`` cannot
-turn into NaN.  The rest is small batched (C, p, p) linear algebra.
+(:278), and the one-group ``regress`` (:220).  A row (or pair) with a
+non-finite coordinate is dropped by a where-select, never by a multiply
+with a 0/1 mask, so an ``inf`` cannot turn into NaN.  The rest is small
+batched (C, p, p) linear algebra.
 
 A failed factorization gives NaN, never an exception, as in JAX: a
 degenerate cluster then ends the fit with the same status code in both
@@ -28,6 +29,7 @@ __all__ = [
     "masked_mean_and_cov",
     "masked_moment_stats",
     "mean_cov_from_stats",
+    "regress",
     "solve_regression",
     "weighted_regression_stats",
     "weighted_regression_stats_gram",
@@ -217,3 +219,21 @@ def masked_mean_and_cov(
     """Per-cluster mean and ddof-1 covariance of the fully finite rows of
     ``Z`` under ``W``."""
     return mean_cov_from_stats(masked_moment_stats(Z, W))
+
+
+def regress(
+    X: torch.Tensor,
+    Y: torch.Tensor,
+    *,
+    mode: str = "eps",
+    alpha: float = 0.0,
+    eps: float = 1e-6,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The MLE of ``Y | X ~ N(X A, S)`` over the rows with no NaN, as one
+    group: ``(A (p, q), S (q, q))`` in any mode of
+    :func:`solve_regression`."""
+    X = torch.atleast_2d(X)
+    Y = torch.atleast_2d(Y)
+    W = torch.ones((X.shape[0], 1), dtype=X.dtype, device=X.device)
+    A, S = solve_regression(weighted_regression_stats(X, Y, W), mode=mode, alpha=alpha, eps=eps)
+    return A[0], S[0]

@@ -1,5 +1,5 @@
-"""The CUDA kernels K1, K2, K3, K4a, K4b, K5, K7, K8 and K9 against their
-plain torch versions on the card.  Without a card every test here skips; on the card run
+"""The CUDA kernels K1-K11 against their plain torch versions on the
+card.  Without a card every test here skips; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
 
@@ -25,8 +25,12 @@ plain version's order, so it equals the plain version bit for bit.  K7
 (the masked Kalman filter) agrees with the plain version to 1e-10
 relative in float64 and to 1e-4·(1 + |ll|) in float32 (rsqrtf, fused
 multiply-adds and the order of the step's sums); a row with no finite
-entry gives exactly 0.0.  Every kernel gives the same bits from run to
-run, float statistics included.
+entry gives exactly 0.0.  K6, K10 and K11 (the raw-batch EM passes)
+build K5's Φ column and run K1's step on it: float32 assignments may
+flip only at near ties of the float64 scores, objectives and statistics
+agree to 1e-4 (float32) or 1e-10 (float64) relative, and K6 equals K5
+then K1 to 1e-12 in float64.  Every kernel gives the same bits from run
+to run, float statistics included.
 """
 
 import numpy as np
@@ -709,3 +713,172 @@ def test_em_multi_kernel_on_canonical_phi_at_pool_width(cuda, wide):
         k1 = mk.markov_em_compact(payload, prev[r].contiguous(), wc[r].contiguous(),
                                   assign_mode="prev" if int(force[r]) else "argmax")
         assert torch.equal(a[r], k1[0]) and torch.equal(c[r], k1[1]) and torch.equal(s[r], k1[2])
+
+
+def _raw_batch_inputs(cuda, dtype, T, d, l, n, C=16, seed=20, nan_cluster=False):
+    """Suffix data as the transposed batch, ``prev`` with lanes left out,
+    and random mixture weights, grouped and canonical, log π folded (one
+    cluster's NaN under ``nan_cluster``), on the card in ``dtype``."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d))
+    x = rng.normal(size=(T, n, l))
+    lens = rng.integers(1, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    eye = lambda k: np.stack([np.eye(k)] * C)  # noqa: E731
+    params = tem.mixture_params_from_numpy(
+        (np.full(C, 1.0 / C), rng.normal(size=(C, d)), eye(d), rng.normal(scale=0.3, size=(C, d, d)),
+         eye(d), rng.normal(size=(C, d, l)), eye(l)), device="cpu")
+    W1, W2, W3 = tem._grouped_weights(params)
+    if nan_cluster:
+        W1[2] = torch.nan
+    W = [w.to(dtype=dtype, device=cuda) for w in (W1, W2, W3)]
+    Wg = mops.canonical_weights(*W, d=d, l=l)
+    t = lambda a: torch.tensor(a, dtype=dtype, device=cuda)  # noqa: E731
+    prev = torch.tensor(rng.integers(0, C, size=n).astype(np.int32), device=cuda)
+    prev[::97] = -1
+    return (t(z.transpose(0, 2, 1).reshape(T * d, n)), t(x.transpose(0, 2, 1).reshape(T * l, n)),
+            torch.tensor(lens, device=cuda), prev, W, Wg)
+
+
+def _raw_batch_call(kernel, inputs, T, d, l, assign_mode="argmax", plain=False):
+    z_t, x_t, lens, prev, W, Wg = inputs
+    kw = dict(T=T, d=d, l=l)
+    if kernel == "K10":
+        fn = mk.markov_assign_suffix_plain if plain else mk.markov_assign_suffix
+        return fn(z_t, x_t, lens, prev, *W, **kw)
+    if kernel == "K6":
+        fn = mk.markov_em_fused_longT_plain if plain else mk.markov_em_fused_longT
+        return fn(z_t, x_t, lens, prev, *W, assign_mode=assign_mode, **kw)
+    fn = mk.markov_em_fused_plain if plain else mk.markov_em_fused
+    return fn(z_t, x_t, lens, prev, Wg, assign_mode=assign_mode, **kw)
+
+
+@pytest.mark.parametrize("kernel,assign_mode", [("K6", "argmax"), ("K6", "prev"), ("K10", "argmax"),
+                                                ("K11", "argmax"), ("K11", "prev")])
+@pytest.mark.parametrize("T,d,l", [(70, 5, 3), (10, 2, 4), (12, 4, 3)])
+@pytest.mark.parametrize("dtype,tie,rel", [(torch.float32, 1e-4, 1e-4), (torch.float64, 1e-9, 1e-10)])
+def test_raw_batch_kernels_match_plain(cuda, kernel, assign_mode, T, d, l, dtype, tie, rel):
+    """K6, K10 and K11 against their plain versions at a ragged n: the
+    first-max assignments off the float64 scores only at near ties, prev
+    mode keeping prev, left-out lanes marked C, counts and switches those
+    of the assignment, the objective within ``rel`` of the float64 scores'
+    sum, the statistics (under the kernel's assignment) within ``rel`` of
+    the plain version's largest; two calls bit-identical."""
+    n, C = 4099, 16
+    inputs = _raw_batch_inputs(cuda, dtype, T, d, l, n, C)
+    z_t, x_t, lens, prev, W, Wg = inputs
+    launches = {"K6": mk.markov_em_fused_longT, "K10": mk.markov_assign_suffix, "K11": mk.markov_em_fused}[kernel]
+    before = launches.launches
+    out = _raw_batch_call(kernel, inputs, T, d, l, assign_mode)
+    assert launches.launches == before + 1
+    again = _raw_batch_call(kernel, inputs, T, d, l, assign_mode)
+    assert all(torch.equal(p, q) for p, q in zip(out, again))
+    a, c, s = out[:3]
+    valid = prev >= 0
+    assert bool((a[~valid] == C).all())
+    assert torch.equal(c.long(), torch.bincount(a[valid].long(), minlength=C))
+    phi64 = mk.markov_materialize_features_longT_plain(z_t.double(), x_t.double(), lens, T=T, d=d, l=l)
+    scores = Wg.double() @ phi64[: Wg.shape[1]]
+    if assign_mode == "prev":
+        assert bool((a[valid] == prev[valid]).all()) and int(s) == 0
+    else:
+        top2 = scores.topk(2, dim=0).values
+        near = (top2[0] - top2[1]) < tie * (1 + top2[0].abs())
+        assert bool(((a == scores.argmax(dim=0).to(torch.int32)) | near | ~valid).all())
+        assert int(s) == int(((a != prev) & valid).sum())
+    if kernel == "K10":
+        return
+    g, obj = out[3], out[4]
+    if assign_mode == "argmax":
+        ref = float(torch.where(valid, scores.gather(0, a.clamp_max(C - 1).long()[None])[0], 0.0).sum())
+        assert abs(float(obj) - ref) <= rel * abs(ref)
+    else:
+        assert float(obj) == 0.0
+    want = _raw_batch_call("K6", (z_t, x_t, lens, torch.where(valid, a, -1), W, Wg), T, d, l, "prev", plain=True)
+    assert torch.equal(c, want[1])
+    scale = want[3].abs().amax().clamp_min(1.0)
+    assert float((g - want[3]).abs().max()) <= rel * float(scale)
+
+
+def test_raw_batch_kernels_nan_cluster(cuda):
+    """A cluster with NaN weights takes every valid row (the first NaN
+    score wins, as ``jnp.argmax``), and the objective is NaN."""
+    T, d, l = 10, 5, 3
+    inputs = _raw_batch_inputs(cuda, torch.float32, T, d, l, 2053, nan_cluster=True)
+    valid = inputs[3] >= 0
+    for kernel in ("K6", "K10", "K11"):
+        out = _raw_batch_call(kernel, inputs, T, d, l)
+        assert bool((out[0][valid] == 2).all()), kernel
+        if kernel != "K10":
+            assert bool(torch.isnan(out[4]))
+
+
+def test_k6_statistics_equal_k5_then_k1(cuda):
+    """K6 builds K5's Φ column in shared memory and runs K1's step on it:
+    its assignments, counts and switches equal K1's on K5's canonical Φ,
+    its statistics and objective to 1e-12 relative (float64)."""
+    T, d, l, n, C = 70, 5, 3, 8197, 16
+    z_t, x_t, lens, prev, W, Wg = _raw_batch_inputs(cuda, torch.float64, T, d, l, n, C, seed=21)
+    phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
+    k1 = mk.markov_em_from_features(phi, prev, Wg, T=T, d=d, l=l)
+    k6 = mk.markov_em_fused_longT(z_t, x_t, lens, prev, *W, T=T, d=d, l=l)
+    for p, q in zip(k1[:3], k6[:3]):
+        assert torch.equal(p, q)
+    scale = k1[3].abs().amax()
+    assert float((k1[3] - k6[3]).abs().max()) <= 1e-12 * float(scale)
+    assert abs(float(k1[4]) - float(k6[4])) <= 1e-12 * abs(float(k1[4]))
+
+
+def test_raw_batch_kernels_refuse_bad_arguments(cuda):
+    T, d, l = 10, 5, 3
+    z_t, x_t, lens, prev, W, Wg = _raw_batch_inputs(cuda, torch.float32, T, d, l, 1000, C=4)
+    kw = dict(T=T, d=d, l=l)
+    with pytest.raises(ValueError):
+        mk.markov_em_fused_longT(z_t, x_t.double(), lens, prev, *W, **kw)
+    with pytest.raises(ValueError):
+        mk.markov_em_fused_longT(z_t, x_t, lens.long(), prev, *W, **kw)
+    with pytest.raises(ValueError):
+        mk.markov_em_fused(z_t[:, ::2], x_t[:, ::2], lens[::2], prev[::2], Wg, **kw)
+    with pytest.raises(ValueError, match="at most"):
+        mk.markov_em_fused(z_t, x_t, lens, prev, torch.zeros((33, Wg.shape[1]), device=cuda), **kw)
+    big = _raw_batch_inputs(cuda, torch.float32, 2, 9, 1, 100, C=2)
+    with pytest.raises(ValueError, match="at most"):
+        mk.markov_assign_suffix(*big[:4], *big[4], T=2, d=9, l=1)
+
+
+def test_train_em_markov_precompute_off_longT_cuda_f64_matches_cpu(cuda):
+    """The long-T fit without Φ on the card in float64 (K6 every
+    iteration) lands where the CPU fit does, and where the fit through Φ
+    does."""
+    rng = np.random.default_rng(15)
+    T, n, d, l, C = 80, 2000, 3, 2, 2
+    labels = rng.integers(0, C, size=n)
+    z = rng.normal(size=(T, n, d)) + 2.0 * labels[None, :, None]
+    x = rng.normal(size=(T, n, l)) - 1.0 * labels[None, :, None]
+    lens = rng.integers(4, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    assign0 = np.where(rng.uniform(size=n) < 0.2, 1 - labels, labels)
+    params0 = (
+        np.full(C, 0.5), rng.normal(size=(C, d)), np.stack([np.eye(d)] * C),
+        np.zeros((C, d, d)), np.stack([np.eye(d)] * C),
+        rng.normal(size=(C, d, l)), np.stack([np.eye(l)] * C),
+    )
+    fits = []
+    for dev, precompute in (("cpu", False), ("cuda", False), ("cuda", True)):
+        t = lambda a, dt=torch.float64: torch.tensor(a, dtype=dt, device=dev)  # noqa: E731
+        before = mk.markov_em_fused_longT.launches
+        fits.append(tem.train_em_markov(
+            tem.mixture_params_from_numpy(params0, device=dev, dtype=torch.float64),
+            t(assign0, torch.int32), t(z), t(x), t(lens, torch.int32), precompute=precompute,
+        ))
+        launched = mk.markov_em_fused_longT.launches - before
+        assert launched == (fits[-1][2] + 1 if dev == "cuda" and not precompute else 0)
+    (p_c, a_c, i_c, s_c) = fits[0]
+    assert s_c == tem.STATUS_CONVERGED
+    for p_g, a_g, i_g, s_g in fits[1:]:
+        assert (i_g, s_g) == (i_c, s_c)
+        assert torch.equal(a_g.cpu(), a_c)
+        for x_c, x_g in zip(p_c, p_g):
+            np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)

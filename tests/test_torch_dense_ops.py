@@ -120,8 +120,17 @@ def test_mvn_logpdf_matches_jax():
     )
 
 
-def test_pattern_groups_match_jax():
-    x, _mean, _cov = _gapped_rows(4)
+@pytest.mark.parametrize("D,p", [(None, None), (3, 0.5), (17, 0.1), (80, 0.05), (512, 0.002)])
+def test_pattern_groups_match_jax(D, p):
+    """The gapped rows, and scattered NaNs at widths that are and are not
+    a multiple of 8 (the packed keys' padding bits)."""
+    if D is None:
+        x, _mean, _cov = _gapped_rows(4)
+    else:
+        rng = np.random.default_rng(D)
+        x = rng.normal(size=(3000, D))
+        x[rng.random(x.shape) < p] = np.nan
+        x[::7, -1] = np.inf
     pt, it = tg.pattern_groups(x)
     pj, ij = jg.pattern_groups(x)
     np.testing.assert_array_equal(pt, pj)

@@ -145,6 +145,9 @@ def test_train_em_markov_init_abort_matches_jax():
 
 
 def test_unported_branches_raise(monkeypatch):
+    """What still raises (the data-parallel pool, bfloat16 Φ); and
+    ``precompute=False`` past T·s = 512, once raising for kernel K6, runs
+    it and matches JAX."""
     z, x, lens, labels = _two_cluster_data(4, n=50)
     args = (
         tem.mixture_params_from_numpy(_init_params(4, 2, 2, 3), device="cpu"),
@@ -159,7 +162,13 @@ def test_unported_branches_raise(monkeypatch):
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tem.train_em_markov(*args)
     monkeypatch.delenv("MTM_MARKOV_PHI")
-    zl = torch.zeros((70, 50, 2), dtype=torch.float64)  # T·s = 560 > 512
-    xl = torch.zeros((70, 50, 3), dtype=torch.float64)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tem.train_em_markov(*args[:2], zl, xl, args[4], precompute=False)
+    zl, xl, lensl, labelsl = _two_cluster_data(5, n=60, T=70)  # T·s = 560 > 512
+    rng = np.random.default_rng(6)
+    assign0 = np.where(rng.uniform(size=labelsl.size) < 0.3, 1 - labelsl, labelsl)
+    (pj, aj, ij, sj), (pt, at, it, st) = _fit_both(
+        _init_params(5, 2, 2, 3), assign0, zl, xl, lensl, n_steps=5, precompute=False
+    )
+    assert (it, st) == (ij, sj) and it >= 1
+    np.testing.assert_array_equal(at, aj)
+    for a, b in zip(tem.mixture_params_to_numpy(pt), pj):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-10, atol=1e-10)

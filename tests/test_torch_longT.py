@@ -5,7 +5,7 @@ plain versions on the canonical Φ against JAX's
 ``markov_em_from_features[_multi](layout="canonical")``, then
 ``train_em_markov``, ``train_em_markov_pool`` and the objectives at long
 T, ``train(fast=True)`` on long-T suffix data and the pooled long-T
-multistart; the branches that need kernel K6 raise.  "Matches" is
+multistart, and the API routes that run kernel K6.  "Matches" is
 identical assignments, iterations, statuses and winners, parameters and
 objectives to 1e-10 (Φ to 1e-12)."""
 
@@ -209,7 +209,7 @@ def test_train_fast_on_long_T_suffix_data_matches_jax():
     tm = TorchMixture(n_clusters=2, states=z, observations=x, random_seed=5, device="cpu")
     jm.train(fast=True, n_steps=30)
     tm.train(fast=True, n_steps=30)
-    assert tm._packed_cache is None  # the Markov route packs no joint batch
+    assert not any(k[0] == "joint" for k in tm._device_cache)  # the Markov route packs no joint batch
     np.testing.assert_array_equal(tm.cluster_assignment, np.asarray(jm.cluster_assignment))
     for name in _PARAM_LISTS:
         np.testing.assert_allclose(np.asarray(getattr(tm, name)), np.asarray(getattr(jm, name)), **TOL)
@@ -231,23 +231,35 @@ def test_pooled_multistart_longT_matches_jax(monkeypatch):
 
 
 def test_k6_branches_raise(monkeypatch):
-    """``MTM_MARKOV_PRECOMP=0`` at long T, the sequential long-T
-    multistart and its objective need kernel K6."""
-    z, x, lens, labels = _suffix(31, n=40)
-    args = (_tp(_init_params(31, 2, 3, 2)), torch.from_numpy(labels), *map(torch.from_numpy, (z, x, lens)))
-    with pytest.raises(NotImplementedError, match="K6"):
-        tem.train_em_markov(*args, precompute=False)
-    z_t, x_t = _transposed(z, x)
-    with pytest.raises(NotImplementedError, match="K6"):
-        tem.complete_data_loglik_markov(args[0], *map(torch.from_numpy, (z_t, x_t, lens)), T=z.shape[0])
-    model = TorchMixture(n_clusters=2, states=z, observations=x, device="cpu")
+    """The API routes that run kernel K6 at long T, once raising, now
+    match JAX: ``train(fast=True)`` under ``MTM_MARKOV_PRECOMP=0`` (K6 per
+    iteration) and the sequential multistart (``MTM_MULTISTART_FUSE=1``,
+    each objective one K6 pass): the same objectives, winner, assignment
+    and parameters."""
+    z, x, _lens, _labels = _suffix(31, n=60)
     monkeypatch.setenv("MTM_MARKOV_PRECOMP", "0")
-    with pytest.raises(NotImplementedError, match="K6"):
-        model.train(fast=True)
+    np.random.seed(6)
+    jm = JaxMixture(n_clusters=2, states=z, observations=x, random_seed=6)
+    np.random.seed(6)
+    tm = TorchMixture(n_clusters=2, states=z, observations=x, random_seed=6, device="cpu")
+    before = tmk.markov_materialize_features_longT.launches
+    jm.train(fast=True, n_steps=6)
+    tm.train(fast=True, n_steps=6)
+    assert tmk.markov_materialize_features_longT.launches == before
+    np.testing.assert_array_equal(tm.cluster_assignment, np.asarray(jm.cluster_assignment))
+    for name in _PARAM_LISTS:
+        np.testing.assert_allclose(np.asarray(getattr(tm, name)), np.asarray(getattr(jm, name)), **TOL)
     monkeypatch.delenv("MTM_MARKOV_PRECOMP")
     monkeypatch.setenv("MTM_MULTISTART_FUSE", "1")
-    with pytest.raises(NotImplementedError, match="K6"):
-        model.train_with_multiple_random_starts(n_starts=2, fast=True, use_cache=False)
+    kw = dict(n_starts=2, n_steps=4, use_cache=False, fast=True, return_objectives=True)
+    np.random.seed(77)
+    jb, jo = JaxMixture(n_clusters=2, states=z, observations=x).train_with_multiple_random_starts(**kw)
+    np.random.seed(77)
+    tb, to = TorchMixture(n_clusters=2, states=z, observations=x, device="cpu").train_with_multiple_random_starts(**kw)
+    assert tb.last_multistart["pool"] is None
+    np.testing.assert_allclose(to, jo, rtol=1e-10)
+    assert tb.random_seed == jb.random_seed
+    np.testing.assert_array_equal(tb.cluster_assignment, np.asarray(jb.cluster_assignment))
 
 
 def test_mstep_long_T_matches_jax():

@@ -211,7 +211,7 @@ def test_train_fast_unstructured_missingness_routes_filter(monkeypatch):
     jm = JaxMixture(n_clusters=2, states=z, observations=x, random_seed=3)
     np.random.seed(3)
     tm = TorchMixture(n_clusters=2, states=z, observations=x, random_seed=3, device="cpu")
-    assert tm._packed()[3].shape[0] > 256
+    assert tm._packed()[4].shape[0] > 256
     jm.train(fast=True, n_steps=40)
     tm.train(fast=True, n_steps=40)
     assert calls == [1]
@@ -236,7 +236,7 @@ def test_train_fast_long_T_interior_missingness_routes_filter(monkeypatch):
     tm = TorchMixture(n_clusters=C, states=z, observations=x, random_seed=3, init="kmeans", device="cpu")
     jm.train(n_steps=30, fast=True)
     tm.train(n_steps=30, fast=True)
-    assert calls == [1] and tm._packed_cache is None
+    assert calls == [1] and not any(k[0] == "joint" for k in tm._device_cache)
     _assert_models_equal(tm, jm)
     acc = max(np.mean(tm.cluster_assignment == labels), np.mean(tm.cluster_assignment != labels))
     assert acc > 0.95

@@ -79,21 +79,19 @@ def test_train_fast_matches_jax_on_adni(adni_data, seed):
 
 
 def test_unported_routes_raise(adni_data, monkeypatch):
-    """What still raises: the verbose transcript, the inference methods,
-    out-of-core training, and at long T on suffix data the branches that
-    need kernel K6 (``MTM_MARKOV_PRECOMP=0`` and the sequential
-    multistart).  The masked-filter route (more than 256 patterns, or
-    T(d+l) > 512) runs."""
+    """What still raises: the observed-only inference family and
+    out-of-core training.  What once raised and now runs: ``bic`` (held
+    against JAX), the verbose transcript (its own parity tests), the
+    masked-filter route (more than 256 patterns, or T(d+l) > 512) and at
+    long T on suffix data the routes of kernel K6 (``MTM_MARKOV_PRECOMP=0``
+    and the sequential multistart; their parity tests are in
+    ``test_torch_longT.py``)."""
     zs, x = adni_data
-    _jm, tm = _pair(zs, x, 0)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.train(verbose=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.train(fast=True, verbose=True)
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tm.train_with_multiple_random_starts(verbose=True)
-    with pytest.raises(NotImplementedError):
-        tm.bic()
+    jm, tm = _pair(zs, x, 0)
+    for name in ("observed_conditional_log_likelihoods", "observations_mle_cluster_assignment"):
+        with pytest.raises(NotImplementedError, match="observed-only"):
+            getattr(tm, name)()
+    np.testing.assert_allclose(tm.bic(), jm.bic(), rtol=1e-12)
     monkeypatch.setenv("MTM_MARKOV_OOC", "1")
     with pytest.raises(NotImplementedError, match="item 9"):
         tm.train(fast=True)
@@ -104,7 +102,7 @@ def test_unported_routes_raise(adni_data, monkeypatch):
     xg[rng.uniform(size=xg.shape) < 0.3] = np.nan
     np.random.seed(0)
     scattered = TorchMixture(n_clusters=3, states=zg, observations=xg, device="cpu")
-    assert scattered._packed()[3].shape[0] > 256
+    assert scattered._packed()[4].shape[0] > 256
     long_t = np.random.default_rng(1).normal(size=(90, 40, 3))
     long_t[1, 0] = np.nan  # an interior gap at T(d+l) = 540
     np.random.seed(0)
@@ -119,9 +117,6 @@ def test_unported_routes_raise(adni_data, monkeypatch):
     np.random.seed(0)
     suffix_model = TorchMixture(n_clusters=2, states=suffix, observations=suffix, device="cpu")
     monkeypatch.setenv("MTM_MARKOV_PRECOMP", "0")
-    with pytest.raises(NotImplementedError, match="K6"):
-        suffix_model.train(fast=True)
-    monkeypatch.delenv("MTM_MARKOV_PRECOMP")
-    monkeypatch.setenv("MTM_MULTISTART_FUSE", "1")
-    with pytest.raises(NotImplementedError, match="K6"):
-        suffix_model.train_with_multiple_random_starts(fast=True, use_cache=False)
+    suffix_model.train(fast=True, n_steps=2)
+    assert suffix_model.last_iterations >= 1
+    assert not any(k[0] == "joint" for k in suffix_model._device_cache)
