@@ -19,7 +19,10 @@ What is ported so far:
   multistart in plain torch, and ``train(fast=True)`` / the fast
   multistart on interior missingness (up to 256 patterns and
   T(d+l) ≤ 512) through the pattern-sorted trainer, with kernels K8
-  (``ops/estep_kernels.py``) and K9 (``ops/mstep_kernels.py``);
+  (``ops/estep_kernels.py``) and K9 (``ops/mstep_kernels.py``); on the
+  card the dense log-likelihoods take kernel K12, and the dense entry
+  points ``em.estep_logliks_sorted``, ``em.estep_assign_sorted``
+  (row-major) and ``em.mstep(impl="pallas")`` kernels K13, K14 and K15;
 - the exact O(T) masked Kalman route for any per-coordinate missingness
   past that gate: ``train(fast=True)`` and the fast multistart (one
   candidate after another, or pooled under ``MTM_MASKED_POOL=1``), with
@@ -29,11 +32,14 @@ What is ported so far:
   propensities over time, ``e_complete_data_log_lik``,
   ``model_log_likelihood``, ``aic``/``bic``, ``mle_cluster_assignment``,
   the predictions), ``E_step``/``M_step`` and the verbose transcript of
-  ``train`` and the multistart.
+  ``train`` and the multistart;
+- the observed-only inference family (``observed_*``,
+  ``observations_mle_cluster_assignment``: the hidden states
+  marginalized), through the dense observed moments (K12 on the card) or
+  past T·l = 512 the O(T) filters (K7 on the card).
 
 The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
-route (the observed-only inference family, out-of-core and data-parallel
-training) raises ``NotImplementedError`` naming the ROADMAP item that
+route (out-of-core and data-parallel training) raises ``NotImplementedError`` naming the ROADMAP item that
 will bring it.
 
 Devices are explicit: public entry points take ``device=`` (default

@@ -17,9 +17,12 @@ the multistart engine:
 ``_pool_window`` (:2414), ``_run_slot_pool`` (:2464),
 ``train_em_markov_pool`` (:2587) and ``complete_data_loglik_markov_multi``
 (:2704).  For any missingness, the dense joint route: ``pack_joint``
-(:121), ``cluster_joint_moments`` (:144), ``estep_logliks`` (:171),
-``assignments_from_logliks`` (:367), ``estep_assign_sorted`` (:382),
-``mstep_sorted`` (:872), ``mstep`` (:920), ``complete_data_loglik``
+(:121), ``pack_observed`` (:138), ``cluster_joint_moments`` (:144),
+``cluster_observed_moments`` (:157), ``estep_logliks`` (:171),
+``estep_logliks_sorted`` (:203), ``observed_logliks`` (:232),
+``observed_logliks_kalman`` (:251), ``assignments_from_logliks`` (:367),
+``estep_assign_sorted`` (:382), ``mstep_sorted`` (:872), ``mstep``
+(:920), ``complete_data_loglik``
 (:1028), ``model_loglik`` (:1047), ``train_em`` (:1261),
 ``train_em_sorted`` (:1663) and ``train_em_multistart`` (:2762); and the
 masked-filter route: ``masked_logliks_kalman`` (:320),
@@ -41,10 +44,15 @@ step from the raw batch (K10), the (C, n) log-likelihoods through K5's
 Φ on the card.  The masked-filter route (any per-coordinate
 missingness, any T) runs one masked Kalman filter pass per E step (K7)
 and the plain-torch masked M step.  The dense route
-evaluates every instance's masked joint Gaussian: ``train_em`` in plain
-torch (one grouped log-density per cluster, time-batched statistics), and
-``train_em_sorted`` over a batch sorted by missingness pattern through
-one E-step kernel (K8) and one Gram kernel (K9) per iteration.  The JAX
+evaluates every instance's masked joint Gaussian: ``train_em`` (the
+log-likelihoods from K12 on the card, one grouped log-density per cluster
+on the CPU; time-batched statistics in plain torch, or K15 under
+``mstep(impl="pallas")``), and ``train_em_sorted`` over a batch sorted by
+missingness pattern through one E-step kernel (K8; K14 on the row-major
+batch) and one Gram kernel (K9) per iteration; K13 gives a sorted
+batch's log-likelihoods.  The observed-only functions take the same
+log-density of the observations alone (states marginalized): K12 on the
+card, or past the dense size the O(T) filters.  The JAX
 package traces each loop into one ``while_loop`` or ``fori_loop``; here a
 single fit is a Python loop that reads one status scalar from the device
 per iteration, and the slot pool runs ``sync_every`` passes per window
@@ -68,6 +76,7 @@ from multimodal_trajectory_modeling_tpu_torch.device import (
 )
 from multimodal_trajectory_modeling_tpu_torch.ops import estep_kernels as ek
 from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
+from multimodal_trajectory_modeling_tpu_torch.ops import kalman as kops
 from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov as mops
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
@@ -85,6 +94,7 @@ __all__ = [
     "STATUS_INIT_ABORT",
     "assignments_from_logliks",
     "cluster_joint_moments",
+    "cluster_observed_moments",
     "complete_data_loglik",
     "complete_data_loglik_markov",
     "complete_data_loglik_markov_multi",
@@ -96,6 +106,7 @@ __all__ = [
     "estep_assign_markov",
     "estep_assign_sorted",
     "estep_logliks",
+    "estep_logliks_sorted",
     "markov_packed_ok",
     "masked_logliks_kalman",
     "mixture_params_from_numpy",
@@ -105,9 +116,12 @@ __all__ = [
     "mstep",
     "mstep_multi",
     "mstep_sorted",
+    "observed_logliks",
+    "observed_logliks_kalman",
     "pack_joint",
     "pack_markov_batch",
     "pack_markov_features",
+    "pack_observed",
     "stack_params",
     "suffix_logliks_markov",
     "train_em",
@@ -929,12 +943,44 @@ def pack_joint(z: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     )
 
 
+def pack_observed(x: torch.Tensor) -> torch.Tensor:
+    """``(T, n, l)`` observations alone in the layout ``[x_1..x_T]`` per
+    instance: ``(n, T·l)`` (the observed-only family)."""
+    T, n, l = x.shape
+    return x.permute(1, 0, 2).reshape(n, T * l)
+
+
 def cluster_joint_moments(params: MixtureParams, T: int):
     """Per-cluster joint ``(mean (C, D), cov (C, D, D))``."""
     return (
         jmom.joint_mean(T, params.m, params.A, params.H),
         jmom.joint_cov(T, params.S, params.A, params.G, params.H, params.L),
     )
+
+
+def cluster_observed_moments(params: MixtureParams, T: int):
+    """Per-cluster ``(mean (C, T·l), cov (C, T·l, T·l))`` of the
+    observations alone, the hidden states marginalized."""
+    return (
+        jmom.observed_mean(T, params.m, params.A, params.H),
+        jmom.observed_cov(T, params.S, params.A, params.G, params.H, params.L),
+    )
+
+
+def _masked_logliks(means, covs, v, patterns, pattern_id, method):
+    """``(C, n)`` masked Gaussian log-densities of the rows of ``v`` under
+    each cluster's ``(mean, cov)``.  ``"pallas"``, and ``"auto"`` on the
+    card, take kernel K12 (:func:`..ops.estep_kernels.estep_logliks_fused`,
+    each row under its own pattern); ``"solve"``, ``"inverse"``,
+    ``"bucketed"``, and ``"auto"`` on the CPU, the grouped form per
+    cluster (:func:`..ops.gaussian.masked_mvn_logpdf_grouped`), K12's plain
+    twin and the JAX package's default."""
+    if method == "pallas" or (method == "auto" and v.device.type == "cuda"):
+        return ek.estep_logliks_fused(means, covs, v, patterns, pattern_id)
+    return torch.stack([
+        gops.masked_mvn_logpdf_grouped(v, mu, cov, patterns, pattern_id, method=method)
+        for mu, cov in zip(means, covs)
+    ])
 
 
 def estep_logliks(
@@ -947,18 +993,61 @@ def estep_logliks(
     method: str = "auto",
 ) -> torch.Tensor:
     """``(C, n)`` per-cluster log-likelihoods of every instance, NaN
-    coordinates marginalized (:func:`..ops.gaussian.masked_mvn_logpdf_grouped`
-    with ``method``)."""
-    if method == "pallas":
-        raise NotImplementedError(
-            "estep_logliks(method='pallas') has no production caller and its "
-            "kernel is not ported (ROADMAP Queue 2)"
-        )
+    coordinates marginalized (``em.py:171``): K12 on the card, the grouped
+    form on the CPU (``method`` as :func:`_masked_logliks` takes it)."""
     means, covs = cluster_joint_moments(params, T)
-    return torch.stack([
-        gops.masked_mvn_logpdf_grouped(v, mu, cov, patterns, pattern_id, method=method)
-        for mu, cov in zip(means, covs)
-    ])
+    return _masked_logliks(means, covs, v, patterns, pattern_id, method)
+
+
+def estep_logliks_sorted(
+    params: MixtureParams,
+    v_sorted: torch.Tensor,  # (n, D) rows grouped by pattern
+    patterns: torch.Tensor,  # (P, D) bool
+    *,
+    sizes: tuple,
+    T: int,
+) -> torch.Tensor:
+    """``(C, n)`` log-likelihoods of a batch sorted by pattern, in its row
+    order, through kernel K13 (``em.py:203``): :func:`estep_logliks`'s
+    values, permuted."""
+    means, covs = cluster_joint_moments(params, T)
+    minv, const = ek.precompute_cluster_pattern_inverses(means, covs, patterns)
+    return ek.estep_logliks_pattern_sorted(v_sorted, means, minv, const, sizes=sizes)
+
+
+def observed_logliks(
+    params: MixtureParams,
+    vx: torch.Tensor,  # (n, T·l) pack_observed rows
+    patterns: torch.Tensor,  # (P, T·l) bool
+    pattern_id: torch.Tensor,  # (n,) int
+    *,
+    T: int,
+    method: str = "auto",
+) -> torch.Tensor:
+    """``(C, n)`` log-likelihoods of the observations alone, the hidden
+    states marginalized (``em.py:232``): :func:`estep_logliks`'s dispatch
+    on the observed moments (K12 on the card)."""
+    means, covs = cluster_observed_moments(params, T)
+    return _masked_logliks(means, covs, vx, patterns, pattern_id, method)
+
+
+def observed_logliks_kalman(
+    params: MixtureParams,
+    x: torch.Tensor,  # (T, n, l) NaN-suffix-padded observations
+    lens: torch.Tensor,  # (n,) int observed prefix lengths
+) -> torch.Tensor:
+    """``(C, n)`` observation-marginal log-likelihoods in O(T)
+    (``em.py:251``): up to T = 128 the suffix Kalman filter
+    (:func:`..ops.kalman.kalman_observed_logliks`), past it the masked
+    filter with an all-NaN state block (:func:`masked_logliks_kalman`,
+    kernel K7 on the card), as the JAX package routes it."""
+    T = x.shape[0]
+    if T > 128:
+        z_none = torch.full((T, x.shape[1], params.m.shape[1]), torch.nan, dtype=x.dtype, device=x.device)
+        return masked_logliks_kalman(params, z_none, x)
+    return kops.kalman_observed_logliks(
+        x, lens, params.m, params.S, params.A, params.G, params.H, params.L
+    )
 
 
 def assignments_from_logliks(pi: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
@@ -980,13 +1069,22 @@ def mstep(
     """Closed-form M step for all clusters: π from the memberships, the
     initial moments from the finite first states, the transition and
     measurement regressions over every finite pair.  ``impl="xla"`` takes
-    the time-batched statistics, ``impl="gram"`` their one-Gram form
-    (equal in float64)."""
+    the time-batched statistics, ``impl="gram"`` their one-Gram form,
+    ``impl="pallas"`` kernel K15 on the packed joint batch with π from
+    :func:`counts_from_assign` (``em.py:943-965``); equal in float64."""
     if impl == "pallas":
-        raise NotImplementedError(
-            "mstep(impl='pallas') has no production caller and its kernel is "
-            "not ported (ROADMAP Queue 2)"
+        T, n, d = z.shape
+        l = x.shape[-1]
+        stats = msk.mstep_stats_pallas(
+            pack_joint(z, x), assign.to(torch.int32).contiguous(), T=T, d=d, l=l,
+            n_clusters=n_clusters,
         )
+        tstats, mstats, istats = msk.unpack_mstep_stats(stats, d, l, n_clusters)
+        pi = counts_from_assign(assign, n_clusters).to(z.dtype) / n
+        m0, S0 = rops.mean_cov_from_stats(istats)
+        A, G = rops.solve_regression(tstats, mode=reg_mode, alpha=alpha)
+        H, L = rops.solve_regression(mstats, mode=reg_mode, alpha=alpha)
+        return MixtureParams(pi, m0, S0, A, G, H, L)
     if impl not in ("xla", "gram"):
         raise ValueError(f"unknown impl {impl!r}")
     lanes = torch.arange(n_clusters, dtype=assign.dtype, device=assign.device)
@@ -1137,20 +1235,21 @@ def estep_assign_sorted(
     *,
     sizes: tuple,
     T: int,
+    bf16: bool = False,
     v_sorted_t: torch.Tensor | None = None,  # (D, n), the transposed copy
 ):
     """The E step over a pattern-sorted batch, ``(assign, counts,
-    switches)``, from the per-(cluster, pattern) inverses and kernel K8;
-    the (C, n) log-likelihoods never reach device memory.  Pass
-    ``v_sorted_t`` to skip the transpose (trainers make it once)."""
-    if v_sorted_t is None:
-        v_sorted_t = v_sorted.T.contiguous()
+    switches)``, from the per-(cluster, pattern) inverses (``em.py:382``);
+    the (C, n) log-likelihoods never reach device memory.  With
+    ``v_sorted_t``, the transposed copy that the trainers make once,
+    kernel K8; without it kernel K14 on the row-major batch.  ``bf16``
+    changes nothing (:func:`..ops.estep_kernels.estep_assign_pattern_sorted`)."""
     means, covs = cluster_joint_moments(params, T)
     minv, const = ek.precompute_cluster_pattern_inverses(means, covs, patterns)
-    return ek.estep_assign_pattern_sorted_t(
-        v_sorted_t, prev_assign, means, minv, const, torch.log(params.pi), patterns,
-        sizes=sizes,
-    )
+    args = (prev_assign, means, minv, const, torch.log(params.pi), patterns)
+    if v_sorted_t is not None:
+        return ek.estep_assign_pattern_sorted_t(v_sorted_t, *args, sizes=sizes)
+    return ek.estep_assign_pattern_sorted(v_sorted, *args, sizes=sizes, bf16=bf16)
 
 
 def mstep_sorted(

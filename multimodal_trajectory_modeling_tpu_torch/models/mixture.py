@@ -14,14 +14,18 @@ predictions), ``regress``/``regress_alpha`` (:756-773), ``E_step`` and
 (:968-1010) and ``train_with_multiple_random_starts`` (:1012-1472), on
 the Markov route (suffix missingness, any T), the dense joint route (any
 missingness within its size gate) and the masked-filter route (any
-missingness past it).  The observed-only family (:706-750) is not ported
-yet and raises.
+missingness past it); and the observed-only family (:706-750), which
+marginalizes the hidden states: ``_packed_observed`` (:288) and
+``_all_observed_logliks`` (:496).
 
 The suffix gate is taken per instance, before the joint batch is packed,
 so the Markov route never packs it; it is the same gate as the JAX
 package's per-pattern ``_suffix_pattern_lens``.  The inference methods
 take it the same way past T(d+l) = 512, where the JAX package packs the
-joint batch to group its patterns first: the result is the same.
+joint batch to group its patterns first: the result is the same.  The
+observed-only family does likewise past T·l = 512 with the x-only gate
+(``_suffix_pattern_lens_x``, :480), so the observed batch is then never
+packed or grouped.
 
 RNG contract: the parameter inits draw from the global NumPy RNG in the
 reference's order, and the random assignment from
@@ -70,18 +74,6 @@ np_eps = np.finfo(float).eps
 home_dir = os.path.dirname(
     os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 )
-
-# public methods of the JAX class that this port does not have yet: the
-# observed-only family, which marginalizes the hidden states
-_OBSERVED_METHODS = frozenset(
-    {
-        "observations_mle_cluster_assignment",
-        "observed_cluster_propensities_over_time",
-        "observed_conditional_log_likelihoods",
-        "observed_condl_log_lik_first_T0_steps",
-    }
-)
-
 
 def _now() -> str:
     return (
@@ -219,16 +211,6 @@ class MMLinGaussSS_marginalizable:
             features, self.n_clusters, random_state=self.random_seed
         )
 
-    def __getattr__(self, name):
-        if name in _OBSERVED_METHODS:
-            raise NotImplementedError(
-                f"{name} is not ported (ROADMAP Queue 1, item 6: the "
-                "observed-only family)"
-            )
-        raise AttributeError(
-            f"{type(self).__name__!r} object has no attribute {name!r}"
-        )
-
     # ------------------------------------------------------------------
     # parameter plumbing
     # ------------------------------------------------------------------
@@ -307,6 +289,27 @@ class MMLinGaussSS_marginalizable:
             self._device_cache[key] = out
         return out
 
+    def _packed_observed(self, observations=None, T0=None):
+        """A dataset's first ``T0`` steps of observations packed for the
+        observed-only family: ``(T0, vx (n, T0·l), patterns (P, T0·l)
+        bool, pattern_id (n,) numpy int32)`` on ``device``, patterns in
+        ``np.unique`` order.  The model's own data is packed once per
+        ``T0``, cached under ``("obs", T0)``."""
+        own = observations is None
+        if own:
+            observations = self.observations
+        T0 = observations.shape[0] if T0 is None else min(T0, observations.shape[0])
+        key = ("obs", T0)
+        if own and key in self._device_cache:
+            return self._device_cache[key]
+        x = np.atleast_3d(observations)[:T0].astype(float)
+        vx_np = em.pack_observed(torch.from_numpy(x)).numpy()
+        patterns, pid = gops.pattern_groups(vx_np)
+        out = (T0, self._on_device(vx_np), self._on_device(patterns, torch.bool), pid)
+        if own:
+            self._device_cache[key] = out
+        return out
+
     def _takes_masked_filter_route(self) -> bool:
         """:meth:`_needs_masked_filter_route` for this model's data.  Past
         T(d+l) = 512 the width decides alone, so the joint batch is
@@ -340,27 +343,32 @@ class MMLinGaussSS_marginalizable:
         return order, sizes, z[:, order], x[:, order], v[order], patterns, pid_s
 
     @staticmethod
-    def _suffix_instance_lens(z_np, x_np):
-        """Per-instance observed lengths ``(n,) int32`` if every instance's
-        missingness is a pure time suffix (z and x in lockstep, no
-        partially observed step, no interior gap, length ≥ 1); else
-        ``None``."""
-        fin_z = np.isfinite(z_np)  # (T, n, d)
-        fin_x = np.isfinite(x_np)  # (T, n, l)
-        z_all, z_any = fin_z.all(-1), fin_z.any(-1)
-        x_all, x_any = fin_x.all(-1), fin_x.any(-1)
-        if not (
-            np.array_equal(z_all, z_any)
-            and np.array_equal(x_all, x_any)
-            and np.array_equal(z_all, x_all)
-        ):
-            return None  # partially-observed time steps or z/x mismatch
-        lens = z_all.sum(axis=0)  # (n,)
-        T = fin_z.shape[0]
-        expect = np.arange(T)[:, None] < lens[None, :]
-        if not np.array_equal(z_all, expect) or lens.min() < 1:
-            return None  # interior gaps
+    def _suffix_instance_lens_x(x_np):
+        """The x-only suffix gate: per-instance observed lengths ``(n,)
+        int32`` if every instance's values in ``x_np`` (T, n, ·) are missing
+        over a pure time suffix (no partially observed step, no interior
+        gap, length ≥ 1), else ``None``.  Taken per instance, it decides as
+        the JAX package's per-pattern ``_suffix_pattern_lens_x``: an
+        all-missing row goes to the masked filter."""
+        fin = np.isfinite(x_np)  # (T, n, l)
+        x_all, x_any = fin.all(-1), fin.any(-1)
+        if not np.array_equal(x_all, x_any):
+            return None  # partially observed steps
+        lens = x_all.sum(axis=0)
+        expect = np.arange(fin.shape[0])[:, None] < lens[None, :]
+        if not np.array_equal(x_all, expect) or lens.min() < 1:
+            return None  # interior gaps or all-missing rows
         return lens.astype(np.int32)
+
+    @staticmethod
+    def _suffix_instance_lens(z_np, x_np):
+        """The joint suffix gate: :meth:`_suffix_instance_lens_x` of z and
+        of x, the two lengths equal (z and x in lockstep); else ``None``."""
+        gate = MMLinGaussSS_marginalizable._suffix_instance_lens_x
+        lens = gate(z_np)
+        if lens is None or not np.array_equal(lens, gate(x_np)):
+            return None
+        return lens
 
     @property
     def n_free_params(self) -> int:
@@ -683,6 +691,78 @@ class MMLinGaussSS_marginalizable:
         H_by_instance = np.stack(self.measurement_matrices)[assignments]
         pred_x[:] = np.einsum("ntl,nld->tnd", chains[:, :Tx, :], H_by_instance)
         return pred_z, pred_x
+
+    # ------------------------------------------------------------------
+    # the observed-only family (hidden states marginalized)
+    # ------------------------------------------------------------------
+
+    def _all_observed_logliks(self, T0, observations) -> np.ndarray:
+        """``(C, n)`` float64 log-likelihoods of a dataset's first ``T0``
+        steps of observations alone (the model's own by default).  Up to
+        T0·l = 512 the dense observed moments (:func:`em.observed_logliks`
+        on :meth:`_packed_observed`: K12 on the card); past it, without
+        packing, the O(T) filters: on suffix data (the x-only gate)
+        :func:`em.observed_logliks_kalman`, on any other the masked filter
+        with an all-NaN state block (:func:`em.masked_logliks_kalman`,
+        K7)."""
+        own = observations is None
+        x_np = self.observations if own else np.atleast_3d(np.asarray(observations, dtype=float))
+        T0 = min(T0, x_np.shape[0])
+        params = self._stacked_params()
+        if T0 * self.d_observations > 512:
+            lens = self._suffix_instance_lens_x(x_np[:T0])
+            x = self._masked_batch()[1][:T0] if own else self._on_device(x_np[:T0])
+            if lens is not None:
+                ll = em.observed_logliks_kalman(params, x, self._on_device(lens, torch.int32))
+            else:
+                z_none = torch.full((T0, x.shape[1], self.d_states), torch.nan, dtype=x.dtype, device=x.device)
+                ll = em.masked_logliks_kalman(params, z_none, x)
+        else:
+            _T0, vx, patterns, pid = self._packed_observed(observations, T0)
+            ll = em.observed_logliks(params, vx, patterns, self._on_device(pid, torch.int32), T=T0)
+        return ll.cpu().numpy().astype(float)
+
+    def observed_condl_log_lik_first_T0_steps(
+        self, c: int, T0: int, *, observations=None
+    ) -> np.ndarray:
+        """p(x | c) over the first ``T0`` steps, every hidden state
+        marginalized."""
+        assert 1 <= T0 <= self.n_timesteps
+        return self._all_observed_logliks(T0, observations)[c]
+
+    def observed_conditional_log_likelihoods(
+        self, c: int, observations=None
+    ) -> np.ndarray:
+        return self.observed_condl_log_lik_first_T0_steps(
+            c, self.n_timesteps, observations=observations
+        )
+
+    def observed_cluster_propensities_over_time(
+        self, observations=None
+    ) -> np.ndarray:
+        """``(T, n, C)`` posterior membership from the first t+1 steps of
+        the observations alone."""
+        _T = (self.observations if observations is None else observations).shape[0]
+        probs = []
+        for t in range(_T):
+            ll = self._all_observed_logliks(t + 1, observations)
+            logits = np.log(self.cluster_propensities)[:, None] + ll
+            probs.append(_softmax_cols(logits).T)
+        pc_t = np.stack(probs, axis=0)
+        assert np.all(pc_t >= 0.0) and np.allclose(np.sum(pc_t, axis=-1), 1.0)
+        return pc_t
+
+    def observations_mle_cluster_assignment(
+        self, *, return_probs: bool = False, observations=None
+    ):
+        """The hard assignment from the observations alone (argmax of
+        log π_c + log p(x | c)); optionally the normalized posterior."""
+        ll = self._all_observed_logliks(self.n_timesteps, observations)
+        prenorm = np.log(self.cluster_propensities)[:, None] + ll
+        assignments = np.argmax(prenorm, axis=0)
+        if return_probs:
+            return assignments, _softmax_cols(prenorm)
+        return assignments
 
     # ------------------------------------------------------------------
     # regression helpers

@@ -62,6 +62,17 @@ _SIGNATURES = {
     "mtm_estep_assign": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
     ],
+    "mtm_estep_assign_rows": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_estep_logliks_block": [_I, _I],
+    "mtm_estep_logliks": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_mstep_stats_tile": [_I, _I, _I, _I, _I, _I],
+    "mtm_mstep_stats": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
+    ],
     "mtm_mstep_gram_padded": [_I],
     "mtm_mstep_gram": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
     "mtm_masked_kalman_max_dim": [],

@@ -1,22 +1,34 @@
-"""The M-step statistics of the pattern-sorted dense trainer: kernel K9.
+"""The dense route's M-step statistics kernels: K9 and K15.
 
 Counterpart of ``multimodal_trajectory_modeling_tpu/ops/pallas_mstep.py``:
-K9 ``mstep_stats_gram_sorted`` (:247) → ``csrc/mstep_gram.cu``.
+K15 ``mstep_stats_pallas`` (:142) → ``csrc/mstep_stats.cu``,
+``unpack_mstep_stats`` (:379), and K9 ``mstep_stats_gram_sorted`` (:247)
+→ ``csrc/mstep_gram.cu``.
 
-With ``U = [v(NaN→0), 1]`` (``u = D + 1``), the kernel sums per segment p
-and cluster c the Gram ``G[p, c] = Σ U Uᵀ`` over the segment's rows of
-that cluster.  Within a segment the validity of every time step is
-constant, so the M step's any-NaN pair drops become a selection of the
-valid (t, t′) blocks of ``G`` afterwards, in plain torch, as in JAX
-(``pallas_mstep.py:326-376``).  The counts come from the ones column,
-exact in float32 while n ≤ 2²⁴.
+K15 takes the packed joint batch in any row order and sums, per cluster,
+the Khatri-Rao statistics of ``em.mstep``: the transition pairs
+``U = [z_t, z_{t+1}, 1]`` (t < T−1), the measurement pairs
+``U = [z_t, x_t, 1]`` and the first state ``U = [z_1, 1]``, each step
+counted where every coordinate of its pair is finite, as ``Σ U Uᵀ`` in
+the JAX layout ``(u, C·u)``.
 
-The wrapper takes its plain version for CPU tensors only; for CUDA
-tensors it launches the kernel or raises, and counts its launches in
+K9 takes a batch sorted by pattern.  With ``U = [v(NaN→0), 1]``
+(``u = D + 1``), it sums per segment p and cluster c the Gram
+``G[p, c] = Σ U Uᵀ`` over the segment's rows of that cluster.  Within a
+segment the validity of every time step is constant, so the M step's
+any-NaN pair drops become a selection of the valid (t, t′) blocks of
+``G`` afterwards, in plain torch, as in JAX (``pallas_mstep.py:326-376``).
+The counts come from the ones column, exact in float32 while n ≤ 2²⁴.
+
+Both kernels sum in a fixed order, so two calls give the same bits.  The
+wrappers take their plain versions for CPU tensors only; for CUDA tensors
+they launch the kernel or raise, and count their launches in
 ``.launches``.
 """
 
 from __future__ import annotations
+
+import functools
 
 import torch
 
@@ -29,13 +41,21 @@ from multimodal_trajectory_modeling_tpu_torch.ops.markov_kernels import (
     _device_index,
 )
 
-__all__ = ["mstep_stats_gram_sorted", "mstep_stats_gram_sorted_plain"]
+__all__ = [
+    "mstep_stats_gram_sorted",
+    "mstep_stats_gram_sorted_plain",
+    "mstep_stats_pallas",
+    "mstep_stats_pallas_plain",
+    "unpack_mstep_stats",
+]
 
 _KINDS = {torch.float32: 0, torch.float64: 1}
 # rows per chunk of the kernel's per-chunk partials, and a cap on their
 # bytes: long chunks at large D
 _CHUNK = 16384
 _PART_BYTES = 512 * 2**20
+# K15's blocks: four on each of the H100's 132 multiprocessors
+_STATS_BLOCKS = 528
 
 
 def _check_args(v, assign, patterns, sizes, T, d, l):
@@ -201,3 +221,169 @@ def mstep_stats_gram_sorted(
 
 
 mstep_stats_gram_sorted.launches = 0
+
+
+# ----------------------------------------------------------------------
+# K15: the Khatri-Rao statistics of the packed joint batch
+# ----------------------------------------------------------------------
+
+
+def _stats_widths(d, l):
+    """The widths u of the three sets: ``[z_t, z_{t+1}, 1]``,
+    ``[z_t, x_t, 1]``, ``[z_1, 1]``."""
+    return 2 * d + 1, d + l + 1, d + 1
+
+
+def _check_stats_args(v, assign, T, d, l):
+    n, D = v.shape
+    if D != T * (d + l):
+        raise ValueError(f"v must be (n, T·(d+l)) = (n, {T * (d + l)}), got {tuple(v.shape)}")
+    if assign.shape != (n,):
+        raise ValueError(f"assign must be ({n},), got {tuple(assign.shape)}")
+    if v.device != assign.device:
+        raise ValueError("v and assign must be on one device")
+
+
+def mstep_stats_pallas_plain(v, assign, *, T, d, l, n_clusters):
+    """Plain torch version of :func:`mstep_stats_pallas`, step by step as
+    ``_mstep_kernel`` (``pallas_mstep.py:68``): per step the masked pair,
+    its weight block ``B[i, c·u + k] = w_ic U_ik`` and ``S += Uᵀ B``."""
+    _check_stats_args(v, assign, T, d, l)
+    n = v.shape[0]
+    C = n_clusters
+    ones = torch.ones((n, 1), dtype=v.dtype, device=v.device)
+    clusters = torch.arange(C, dtype=assign.dtype, device=assign.device)
+    W = (assign[:, None] == clusters).to(v.dtype)  # (n, C); outside [0, C) → 0
+
+    def z_at(t):
+        return v[:, t * d : (t + 1) * d]
+
+    def x_at(t):
+        return v[:, T * d + t * l : T * d + (t + 1) * l]
+
+    def zeroed(a):
+        return torch.where(torch.isfinite(a), a, 0.0)
+
+    def khatri(U, ok):
+        u = U.shape[1]
+        B = ((W * ok[:, None])[:, :, None] * U[:, None, :]).reshape(n, C * u)
+        return U.T @ B
+
+    def masked_pair(a, b):
+        ok = (torch.isfinite(a).all(1) & torch.isfinite(b).all(1)).to(v.dtype)
+        return torch.cat([zeroed(a), zeroed(b), ones], 1), ok
+
+    u_t, u_m, u_i = _stats_widths(d, l)
+    S_t = v.new_zeros((u_t, C * u_t))
+    for t in range(T - 1):
+        S_t += khatri(*masked_pair(z_at(t), z_at(t + 1)))
+    S_m = v.new_zeros((u_m, C * u_m))
+    for t in range(T):
+        S_m += khatri(*masked_pair(z_at(t), x_at(t)))
+    z0 = z_at(0)
+    S_i = khatri(torch.cat([zeroed(z0), ones], 1), torch.isfinite(z0).all(1).to(v.dtype))
+    return S_t, S_m, S_i
+
+
+@functools.lru_cache(maxsize=16)
+def _stats_entries(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
+    """K15's entry table ``(E, 9)`` int32, one row per upper-triangle entry
+    (j ≤ k) of the three sets: the offset and stride (per step) in a
+    packed row of each factor (offset D, stride 0: the ones column), the
+    steps, the finiteness rule (0 transition, 1 measurement, 2 first
+    state), the set and (j, k)."""
+    D = T * (d + l)
+
+    def factor(rule, j):
+        if rule == 0:  # [z_t, z_{t+1}, 1]: z_{t+1}[j − d] sits at t·d + j
+            return (j, d) if j < 2 * d else (D, 0)
+        if rule == 1:  # [z_t, x_t, 1]
+            if j < d:
+                return (j, d)
+            return (T * d + j - d, l) if j < d + l else (D, 0)
+        return (j, d) if j < d else (D, 0)  # [z_1, 1]
+
+    rows = []
+    for rule, (u, steps) in enumerate(zip(_stats_widths(d, l), (T - 1, T, 1))):
+        for j in range(u):
+            for k in range(j, u):
+                rows.append((*factor(rule, j), *factor(rule, k), steps, rule, rule, j, k))
+    return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+def mstep_stats_pallas(
+    v: torch.Tensor,  # (n, T·(d+l)) packed joint rows, any order
+    assign: torch.Tensor,  # (n,) int32; outside [0, C) counts nowhere
+    *,
+    T: int,
+    d: int,
+    l: int,
+    n_clusters: int,
+):
+    """K15: the per-cluster statistics of the packed batch, ``(S_trans
+    (u_t, C·u_t), S_meas (u_m, C·u_m), S_init (u_i, C·u_i))`` with
+    ``u = 2d+1, d+l+1, d+1`` (``pallas_mstep.py:142``).  CUDA tensors
+    launch ``csrc/mstep_stats.cu`` (float32 or float64 ``v``, int32
+    ``assign``, both contiguous); CPU tensors take the plain version."""
+    _check_stats_args(v, assign, T, d, l)
+    if v.device.type == "cpu":
+        return mstep_stats_pallas_plain(v, assign, T=T, d=d, l=l, n_clusters=n_clusters)
+    if v.device.type != "cuda":
+        raise ValueError(f"unsupported device {v.device}")
+    if v.dtype not in _KINDS:
+        raise ValueError(f"v must be float32 or float64, got {v.dtype}")
+    if assign.dtype != torch.int32:
+        raise ValueError(f"assign must be int32, got {assign.dtype}")
+    if not (v.is_contiguous() and assign.is_contiguous()):
+        raise ValueError("v and assign must be contiguous")
+    n = v.shape[0]
+    if n == 0:
+        raise ValueError("empty batch")
+    C = n_clusters
+    lib = _build.library()
+    kind = _KINDS[v.dtype]
+    entries = _stats_entries(T, d, l, v.device)
+    E = entries.shape[0]
+    if lib.mtm_mstep_stats_tile(kind, T, d, l, C, E) <= 0:
+        raise ValueError(f"C={C}, T={T}, d={d}, l={l}: the statistics do not fit the kernel's shared memory")
+    per_block = -(-n // min(_STATS_BLOCKS, n))
+    blocks = -(-n // per_block)
+    part = torch.empty((blocks, C, E), dtype=v.dtype, device=v.device)
+    outs = tuple(torch.empty((u, C * u), dtype=v.dtype, device=v.device) for u in _stats_widths(d, l))
+    rc = lib.mtm_mstep_stats(
+        _device_index(v), kind, v.data_ptr(), assign.data_ptr(), entries.data_ptr(),
+        part.data_ptr(), *(o.data_ptr() for o in outs), n, per_block, blocks, T, d, l, C, E,
+        torch.cuda.current_stream(v.device).cuda_stream,
+    )
+    _build.check(rc, "mstep_stats_pallas")
+    mstep_stats_pallas.launches += 1
+    return outs
+
+
+mstep_stats_pallas.launches = 0
+
+
+def unpack_mstep_stats(stats, d: int, l: int, n_clusters: int):
+    """Split :func:`mstep_stats_pallas`'s matrices into ``(tstats, mstats,
+    istats)`` (:class:`~.regression.RegressionStats` twice,
+    :class:`~.regression.MomentStats`), as ``pallas_mstep.py:379``."""
+    S_t, S_m, S_i = stats
+    C = n_clusters
+    u_t, u_m, u_i = _stats_widths(d, l)
+
+    def blocks(S, u):  # (u, C·u) → (C, u, u)
+        return S.reshape(u, C, u).permute(1, 0, 2)
+
+    Bt = blocks(S_t, u_t)
+    tstats = rops.RegressionStats(
+        xtx=Bt[:, :d, :d], xty=Bt[:, :d, d : 2 * d], yty=Bt[:, d : 2 * d, d : 2 * d],
+        sx=Bt[:, 2 * d, :d], sy=Bt[:, 2 * d, d : 2 * d], count=Bt[:, 2 * d, 2 * d],
+    )
+    Bm = blocks(S_m, u_m)
+    mstats = rops.RegressionStats(
+        xtx=Bm[:, :d, :d], xty=Bm[:, :d, d : d + l], yty=Bm[:, d : d + l, d : d + l],
+        sx=Bm[:, d + l, :d], sy=Bm[:, d + l, d : d + l], count=Bm[:, d + l, d + l],
+    )
+    Bi = blocks(S_i, u_i)
+    istats = rops.MomentStats(count=Bi[:, d, d], s=Bi[:, d, :d], ss=Bi[:, :d, :d])
+    return tstats, mstats, istats

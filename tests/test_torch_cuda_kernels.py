@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K11 against their plain torch versions on the
+"""The CUDA kernels K1-K15 against their plain torch versions on the
 card.  Without a card every test here skips; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -29,8 +29,14 @@ entry gives exactly 0.0.  K6, K10 and K11 (the raw-batch EM passes)
 build K5's Φ column and run K1's step on it: float32 assignments may
 flip only at near ties of the float64 scores, objectives and statistics
 agree to 1e-4 (float32) or 1e-10 (float64) relative, and K6 equals K5
-then K1 to 1e-12 in float64.  Every kernel gives the same bits from run
-to run, float statistics included.
+then K1 to 1e-12 in float64.  K12 and K13 (the dense (C, n)
+log-likelihoods) agree with their plain versions to 1e-4·(1 + |ll|)
+(float32) or 1e-10 relative (float64): the order of the quadratic
+form's sums; K13 equals K12's columns in sorted order bit for bit (one
+body); K14 (K8 on the row-major batch) equals K8 bit for bit.  K15 (the
+Khatri-Rao statistics) agrees with its plain version to 1e-4 (float32)
+or 1e-11 (float64) of the same sums over |v|.  Every kernel gives the
+same bits from run to run, float statistics included.
 """
 
 import numpy as np
@@ -474,6 +480,155 @@ def test_dense_kernels_refuse_bad_arguments(cuda):
         msk.mstep_stats_gram_sorted(v.half(), assign, pat, **kw)
     with pytest.raises(ValueError):
         msk.mstep_stats_gram_sorted(v[:-1], assign[:-1], pat, **kw)
+
+
+def _perm(n, device):
+    """The fixed row permutation that :func:`_unsorted` applies."""
+    return torch.as_tensor(np.random.default_rng(0).permutation(n), device=device)
+
+
+def _unsorted(v, sizes):
+    """The sorted rows of ``v`` shuffled (row j is row ``_perm[j]``), with
+    their pattern ids."""
+    pid = torch.as_tensor(np.repeat(np.arange(len(sizes)), sizes).astype(np.int32), device=v.device)
+    perm = _perm(v.shape[0], v.device)
+    return v[perm], pid[perm]
+
+
+def _assert_logliks_close(got, want, dtype):
+    assert got.dtype == dtype and got.shape == want.shape
+    if dtype == torch.float64:
+        assert bool(((got - want).abs() <= 1e-10 * want.abs().clamp_min(1.0)).all())
+    else:
+        assert bool(((got.double() - want).abs() <= 1e-4 * (1 + want.abs())).all())
+
+
+@pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_estep_logliks_kernels_match_plain(cuda, T, n, dtype):
+    """K12 on shuffled rows and K13 on the sorted batch at D = 80 and
+    D = 512, an empty and a one-row segment among them."""
+    v, sizes, pat, (means, minv, const, _logpi), _prev, _assign = _dense_inputs(cuda, T, n, seed=T + 2)
+    ops = tuple(o.to(dtype) for o in (means, minv, const))
+    want = ek.estep_logliks_pattern_sorted_plain(v, means, minv, const, sizes=sizes)
+    before = ek.estep_logliks_pattern_sorted.launches
+    got = ek.estep_logliks_pattern_sorted(v.to(dtype), *ops, sizes=sizes)
+    assert ek.estep_logliks_pattern_sorted.launches == before + 1
+    _assert_logliks_close(got, want, dtype)
+    assert torch.equal(got, ek.estep_logliks_pattern_sorted(v.to(dtype), *ops, sizes=sizes))
+    vu, pid = _unsorted(v, sizes)
+    before = ek.estep_logliks_pallas.launches
+    got12 = ek.estep_logliks_pallas(vu.to(dtype).contiguous(), pid, *ops)
+    assert ek.estep_logliks_pallas.launches == before + 1
+    _assert_logliks_close(got12, ek.estep_logliks_pallas_plain(vu, pid, means, minv, const), dtype)
+    assert torch.equal(got12, got[:, _perm(v.shape[0], cuda)])
+
+
+def test_estep_logliks_fused_chunks_on_the_card(cuda, monkeypatch):
+    """The chunked K12 (5 patterns a chunk, one launch for each chunk
+    with rows) equals the unchunked call."""
+    v, sizes, pat, _ops, _prev, _assign = _dense_inputs(cuda, 10, 5003, seed=5)
+    vu, pid = _unsorted(v, sizes)
+    rng = np.random.default_rng(5)
+    C = 16
+    eye = lambda k: np.stack([np.eye(k)] * C)  # noqa: E731
+    params = tem.mixture_params_from_numpy(
+        (np.full(C, 1.0 / C), rng.normal(size=(C, 5)), eye(5), rng.normal(scale=0.3, size=(C, 5, 5)),
+         eye(5), rng.normal(size=(C, 5, 3)), eye(3)), device=cuda, dtype=torch.float64)
+    means, covs = tem.cluster_joint_moments(params, 10)
+    whole = ek.estep_logliks_fused(means, covs, vu, pat, pid)
+    D = v.shape[1]
+    monkeypatch.setattr(ek, "_INVERSE_BYTES", 5 * C * D * D * 8)
+    before = ek.estep_logliks_pallas.launches
+    chunked = ek.estep_logliks_fused(means, covs, vu, pat, pid)
+    chunks = sum(1 for k in range(0, len(sizes), 5) if sum(sizes[k : k + 5]) > 0)
+    assert ek.estep_logliks_pallas.launches - before == chunks > 1
+    assert bool(((chunked - whole).abs() <= 1e-12 * whole.abs().clamp_min(1.0)).all())
+
+
+@pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_estep_assign_rows_kernel_is_k8(cuda, T, n, dtype):
+    """K14 on the row-major sorted batch gives K8's outputs bit for bit;
+    ``bf16=True`` changes nothing."""
+    v, sizes, pat, ops, prev, _assign = _dense_inputs(cuda, T, n, seed=T + 3)
+    args = (prev, *(o.to(dtype) for o in ops), pat)
+    k8 = ek.estep_assign_pattern_sorted_t(v.T.contiguous().to(dtype), *args, sizes=sizes)
+    before = ek.estep_assign_pattern_sorted.launches
+    k14 = ek.estep_assign_pattern_sorted(v.to(dtype), *args, sizes=sizes)
+    assert ek.estep_assign_pattern_sorted.launches == before + 1
+    k14_bf16 = ek.estep_assign_pattern_sorted(v.to(dtype), *args, sizes=sizes, bf16=True)
+    for a, b, c in zip(k14, k8, k14_bf16):
+        assert torch.equal(a, b) and torch.equal(a, c)
+
+
+@pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500), (1, 700)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
+def test_mstep_stats_kernel_matches_plain(cuda, T, n, dtype, rel):
+    """K15 at D = 80, D = 512 and T = 1 (no transition pair) on gapped
+    rows in any order; an assignment outside [0, C) counts nowhere."""
+    if T > 1:
+        v, *_rest, assign = _dense_inputs(cuda, T, n, seed=T + 4)
+    else:
+        v, assign = _one_step_inputs(cuda, n)
+    v, _pid = _unsorted(v, (v.shape[0],))
+    C = 16
+    assign[7], assign[8] = C, -1
+    kw = dict(T=T, d=5, l=3, n_clusters=C)
+    before = msk.mstep_stats_pallas.launches
+    got = msk.mstep_stats_pallas(v.to(dtype), assign, **kw)
+    assert msk.mstep_stats_pallas.launches == before + 1
+    want = msk.mstep_stats_pallas_plain(v, assign, **kw)
+    mag = msk.mstep_stats_pallas_plain(v.abs(), assign, **kw)
+    for g, w, m in zip(got, want, mag):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(((g.double() - w).abs() <= rel * m + 1e-30).all())
+    for x1, x2 in zip(got, msk.mstep_stats_pallas(v.to(dtype), assign, **kw)):
+        assert torch.equal(x1, x2)
+
+
+def _one_step_inputs(cuda, n):
+    rng = np.random.default_rng(1)
+    v = rng.normal(size=(n, 8))
+    v[rng.uniform(size=n) < 0.2, 2] = np.nan
+    assign = rng.integers(0, 16, size=n).astype(np.int32)
+    return torch.tensor(v, device=cuda), torch.tensor(assign, device=cuda)
+
+
+def test_mstep_pallas_cuda_f64_matches_cpu(cuda):
+    """``em.mstep(impl="pallas")`` (K15) on the card equals the CPU's and
+    the plain ``impl="xla"`` in float64."""
+    v, _sizes, _pat, _ops, _prev, assign = _dense_inputs(cuda, 10, 5000, seed=8)
+    n = v.shape[0]
+    z = v[:, :50].reshape(n, 10, 5).permute(1, 0, 2)
+    x = v[:, 50:].reshape(n, 10, 3).permute(1, 0, 2)
+    got = tem.mstep(z, x, assign, n_clusters=16, impl="pallas")
+    for a, b, c in zip(got, tem.mstep(z.cpu(), x.cpu(), assign.cpu(), n_clusters=16, impl="pallas"),
+                       tem.mstep(z, x, assign, n_clusters=16)):
+        np.testing.assert_allclose(a.cpu().numpy(), b.numpy(), rtol=1e-9, atol=1e-9)
+        np.testing.assert_allclose(a.cpu().numpy(), c.cpu().numpy(), rtol=1e-9, atol=1e-9)
+
+
+def test_new_dense_kernels_refuse_bad_arguments(cuda):
+    v, sizes, pat, (means, minv, const, logpi), prev, assign = _dense_inputs(cuda, 10, 2000, seed=3)
+    with pytest.raises(ValueError, match="float32 or float64"):
+        ek.estep_logliks_pattern_sorted(v.half(), means, minv, const, sizes=sizes)
+    with pytest.raises(ValueError, match="contiguous"):
+        ek.estep_logliks_pattern_sorted(v.T.contiguous().T, means, minv, const, sizes=sizes)
+    with pytest.raises(ValueError, match="sizes"):
+        ek.estep_logliks_pattern_sorted(v, means, minv, const, sizes=sizes[:-1])
+    vu, pid = _unsorted(v, sizes)
+    with pytest.raises(ValueError, match="outside"):
+        ek.estep_logliks_pallas(vu, pid + len(sizes), means, minv, const)
+    with pytest.raises(ValueError, match="int32"):
+        ek.estep_assign_pattern_sorted(v, prev.long(), means, minv, const, logpi, pat, sizes=sizes)
+    kw = dict(T=10, d=5, l=3, n_clusters=16)
+    with pytest.raises(ValueError, match="int32"):
+        msk.mstep_stats_pallas(v, assign.long(), **kw)
+    with pytest.raises(ValueError, match="T·"):
+        msk.mstep_stats_pallas(v, assign, T=10, d=4, l=3, n_clusters=16)
+    with pytest.raises(ValueError, match="shared memory"):
+        msk.mstep_stats_pallas(v, assign, T=10, d=5, l=3, n_clusters=4096)
 
 
 def test_train_em_sorted_cuda_f64_matches_cpu(cuda):

@@ -247,14 +247,25 @@ def test_train_em_multistart_matches_jax():
 
 
 def test_unported_kernel_options_raise():
+    """The kernel options that once raised now run and match JAX (which
+    runs its Pallas kernels in interpret mode): ``estep_logliks(method=
+    "pallas")`` (K12's plain version, equal to the CPU's default grouped
+    form) and ``mstep(impl="pallas")`` (K15's)."""
     z, x, labels = _gapped_data(8, n=60)
     v, patterns, pid = _packed(z, x)
-    params = tem.mixture_params_from_numpy(_init_params(8, 2, 2, 3), device="cpu")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tem.estep_logliks(params, *map(torch.from_numpy, (v, patterns, pid)), T=4, method="pallas")
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tem.mstep(torch.from_numpy(z), torch.from_numpy(x), torch.from_numpy(labels),
-                  n_clusters=2, impl="pallas")
+    params_np = _init_params(8, 2, 2, 3)
+    params = tem.mixture_params_from_numpy(params_np, device="cpu")
+    jparams = jem.MixtureParams(*map(jnp.asarray, params_np))
+    got = tem.estep_logliks(params, *map(torch.from_numpy, (v, patterns, pid)), T=4, method="pallas")
+    want = jem.estep_logliks(jparams, *map(jnp.asarray, (v, patterns, pid)), T=4, method="pallas")
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    auto = tem.estep_logliks(params, *map(torch.from_numpy, (v, patterns, pid)), T=4)
+    np.testing.assert_allclose(got.numpy(), auto.numpy(), **TOL)
+    got = tem.mstep(torch.from_numpy(z), torch.from_numpy(x), torch.from_numpy(labels),
+                    n_clusters=2, impl="pallas")
+    want = jem.mstep(jnp.asarray(z), jnp.asarray(x), jnp.asarray(labels), n_clusters=2, impl="pallas")
+    for a, b in zip(tem.mixture_params_to_numpy(got), want):
+        np.testing.assert_allclose(a, np.asarray(b), **TOL)
 
 
 # ----------------------------------------------------------------------

@@ -1,10 +1,16 @@
-"""The plain versions of kernels K8 (the sorted E step) and K9 (the
-sorted M-step Grams) against the JAX package's Pallas kernels, which run
-in interpret mode on the CPU as ``em.train_em_sorted`` runs them, in
-float64: K8 gives identical assignments, counts and switches, K9 its
-statistics to 1e-10.  Gapped trajectories (an interior missing step, x
-lost at t=0), segments of every size including an empty one."""
+"""The plain versions of the dense route's kernels against the JAX
+package's Pallas kernels, which run in interpret mode on the CPU, in
+float64: K8 (the sorted E step) and K14 (its row-major form) give
+identical assignments, counts and switches, K12 and K13 (the (C, n)
+log-likelihoods) agree to 1e-10 relative, K9 (the sorted M-step Grams)
+and K15 (the Khatri-Rao statistics) to 1e-10.  Gapped trajectories (an
+interior missing step, x lost at t=0), segments of every size including
+an empty one; and 40 missingness patterns with a ragged segment of every
+size for K12-K14."""
 
+import functools
+
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -174,3 +180,159 @@ def test_wrappers_reject_bad_arguments():
     with pytest.raises(ValueError, match="device"):
         tek.estep_assign_pattern_sorted_t(tv.T.to("meta"), ta.to("meta"), *(
             t.to("meta") for t in (means, minv, const, const[:, 0], tp)), sizes=sizes)
+
+
+# ----------------------------------------------------------------------
+# K12-K15 on 40 patterns
+# ----------------------------------------------------------------------
+
+REL = dict(rtol=1e-10, atol=1e-10)
+
+
+@pytest.fixture(scope="module")
+def pattern_case():
+    """2003 rows of D = 25 (T=5, d=2, l=3), each missing the coordinates
+    of one of 40 random masks (one fully observed), rows in random order:
+    segments of ragged sizes; 3 random clusters and their inverses."""
+    rng = np.random.default_rng(40)
+    T, d, l, C, n = 5, 2, 3, 3, 2003
+    z = rng.normal(size=(T, n, d)) * 2.0
+    x = z @ rng.normal(size=(d, l)) + rng.normal(size=(T, n, l))
+    v = tem.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
+    pool = rng.uniform(size=(40, v.shape[1])) > 0.3
+    pool[0] = True
+    v[~pool[rng.integers(0, 40, size=n)]] = np.nan
+    patterns, pid = jg.pattern_groups(v)
+    params = (np.full(C, 1.0 / C), rng.normal(size=(C, d)), np.stack([np.eye(d)] * C),
+              rng.normal(scale=0.4, size=(C, d, d)), np.stack([np.eye(d)] * C),
+              rng.normal(size=(C, d, l)), np.stack([np.eye(l)] * C))
+    tp = tem.mixture_params_from_numpy(params, device="cpu")
+    means, covs = tem.cluster_joint_moments(tp, T)
+    minv, const = tek.precompute_cluster_pattern_inverses(means, covs, torch.from_numpy(patterns))
+    order = np.argsort(pid, kind="stable")
+    prev = rng.integers(0, C, size=n).astype(np.int32)
+    prev[::37] = -1
+    assign = rng.integers(0, C, size=n).astype(np.int32)
+    assign[5], assign[6] = C, -1  # rows of no cluster
+    return dict(
+        v=v, pid=pid, patterns=patterns, order=order, params=params, tp=tp, T=T, d=d, l=l, C=C,
+        sizes=tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0])),
+        ops=(means, minv, const), covs=covs, prev=prev, assign=assign,
+    )
+
+
+def _jnp(*tensors):
+    return tuple(jnp.asarray(t.numpy() if isinstance(t, torch.Tensor) else t) for t in tensors)
+
+
+def test_pattern_case_is_ragged(pattern_case):
+    sizes = pattern_case["sizes"]
+    assert len(sizes) == 40 and min(sizes) > 0 and len(set(sizes)) > 10
+    assert pattern_case["v"].shape[1] <= 40
+
+
+def test_estep_logliks_plain_matches_jax_kernel(pattern_case):
+    """K12: rows in any order, each under its own pattern."""
+    c = pattern_case
+    got = tek.estep_logliks_pallas(torch.from_numpy(c["v"]), torch.from_numpy(c["pid"]), *c["ops"])
+    want = jpe.estep_logliks_pallas(*_jnp(c["v"], c["pid"], *c["ops"]), interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **REL)
+
+
+def test_estep_logliks_sorted_plain_matches_jax_kernel(pattern_case):
+    """K13 on the sorted batch: JAX's kernel, and K12's columns in sorted
+    order."""
+    c = pattern_case
+    vs = c["v"][c["order"]]
+    got = tek.estep_logliks_pattern_sorted(torch.from_numpy(vs), *c["ops"], sizes=c["sizes"])
+    want = jpe.estep_logliks_pattern_sorted(*_jnp(vs, *c["ops"]), sizes=c["sizes"], interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **REL)
+    k12 = tek.estep_logliks_pallas(torch.from_numpy(c["v"]), torch.from_numpy(c["pid"]), *c["ops"])
+    np.testing.assert_array_equal(got.numpy(), k12.numpy()[:, c["order"]])
+
+
+def test_estep_logliks_sorted_entry_matches_jax(pattern_case):
+    c = pattern_case
+    vs = c["v"][c["order"]]
+    got = tem.estep_logliks_sorted(c["tp"], torch.from_numpy(vs), torch.from_numpy(c["patterns"]),
+                                   sizes=c["sizes"], T=c["T"])
+    want = jem.estep_logliks_sorted(jem.MixtureParams(*_jnp(*c["params"])), *_jnp(vs, c["patterns"]),
+                                    sizes=c["sizes"], T=c["T"], interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **REL)
+
+
+def test_estep_assign_row_major_matches_jax_and_k8(pattern_case):
+    """K14 on the row-major sorted batch: JAX's row-major kernel (its
+    expanded form, in float64) and K8 on the transposed copy give the same
+    assignments, counts and switches; through ``em.estep_assign_sorted``
+    without ``v_sorted_t`` too."""
+    c = pattern_case
+    vs = c["v"][c["order"]]
+    prev = c["prev"][c["order"]]
+    logpi = torch.log(c["tp"].pi)
+    args = (torch.from_numpy(prev), *c["ops"], logpi, torch.from_numpy(c["patterns"]))
+    got = tek.estep_assign_pattern_sorted(torch.from_numpy(vs), *args, sizes=c["sizes"])
+    jitted = jax.jit(functools.partial(jpe.estep_assign_pattern_sorted, sizes=c["sizes"], interpret=True))
+    want = jitted(*_jnp(vs, *args))
+    k8 = tek.estep_assign_pattern_sorted_t(torch.from_numpy(vs.T.copy()), *args, sizes=c["sizes"])
+    entry = tem.estep_assign_sorted(c["tp"], torch.from_numpy(vs), torch.from_numpy(c["patterns"]),
+                                    torch.from_numpy(prev), sizes=c["sizes"], T=c["T"])
+    for g, w, k, e in zip(got, want, k8, entry):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+        assert torch.equal(g, k) and torch.equal(g, e) and g.dtype == torch.int32
+
+
+def test_estep_assign_bf16_is_bit_identical(pattern_case):
+    """``bf16=True`` computes what ``bf16=False`` does, as the JAX
+    kernel's toolchain makes it."""
+    c = pattern_case
+    vs = torch.from_numpy(c["v"][c["order"]])
+    kw = dict(sizes=c["sizes"], T=c["T"])
+    args = (c["tp"], vs, torch.from_numpy(c["patterns"]), torch.from_numpy(c["prev"][c["order"]]))
+    for a, b in zip(tem.estep_assign_sorted(*args, bf16=True, **kw), tem.estep_assign_sorted(*args, **kw)):
+        assert torch.equal(a, b)
+
+
+def test_estep_logliks_fused_chunks_equal_unchunked(pattern_case, monkeypatch):
+    """With the inverses' budget at 7 patterns, the 40 patterns go in 6
+    chunks; the result is the unchunked one."""
+    c = pattern_case
+    args = (*c["ops"][:1], c["covs"], torch.from_numpy(c["v"]), torch.from_numpy(c["patterns"]),
+            torch.from_numpy(c["pid"]))
+    whole = tek.estep_logliks_fused(*args)
+    D = c["v"].shape[1]
+    monkeypatch.setattr(tek, "_INVERSE_BYTES", 7 * c["C"] * D * D * 8)
+    calls = []
+    monkeypatch.setattr(tek, "estep_logliks_pallas", lambda *a: calls.append(a) or tek.estep_logliks_pallas_plain(*a))
+    chunked = tek.estep_logliks_fused(*args)
+    assert len(calls) == 6
+    np.testing.assert_allclose(chunked.numpy(), whole.numpy(), rtol=1e-14, atol=1e-14)
+    np.testing.assert_allclose(whole.numpy(), tek.estep_logliks_pallas(torch.from_numpy(c["v"]),
+                               torch.from_numpy(c["pid"]), *c["ops"]).numpy(), rtol=0, atol=0)
+
+
+def test_mstep_stats_plain_matches_jax_kernel(pattern_case):
+    """K15 and its unpacking on the unsorted batch, rows of no cluster
+    included; and ``em.mstep(impl="pallas")`` against JAX's."""
+    c = pattern_case
+    T, d, l, C = c["T"], c["d"], c["l"], c["C"]
+    kw = dict(T=T, d=d, l=l, n_clusters=C)
+    got = tmk.mstep_stats_pallas(torch.from_numpy(c["v"]), torch.from_numpy(c["assign"]), **kw)
+    want = jpm.mstep_stats_pallas(*_jnp(c["v"], c["assign"]), interpret=True, **kw)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **REL)
+    flat = [f for st in tmk.unpack_mstep_stats(got, d, l, C) for f in st]
+    flat_w = [f for st in jpm.unpack_mstep_stats(want, d, l, C) for f in st]
+    for g, w in zip(flat, flat_w):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **REL)
+    n = c["v"].shape[0]
+    vt = torch.from_numpy(c["v"])
+    z = vt[:, : T * d].reshape(n, T, d).permute(1, 0, 2)
+    x = vt[:, T * d :].reshape(n, T, l).permute(1, 0, 2)
+    a = torch.from_numpy(c["assign"])
+    pallas = tem.mstep(z, x, a, n_clusters=C, impl="pallas")
+    want_p = jem.mstep(*_jnp(z.contiguous(), x.contiguous(), a), n_clusters=C, impl="pallas")
+    xla = tem.mstep(z, x, a, n_clusters=C)
+    for g, w, e in zip(pallas, want_p, xla):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), **REL)
+        np.testing.assert_allclose(g.numpy(), e.numpy(), **REL)

@@ -79,18 +79,22 @@ def test_train_fast_matches_jax_on_adni(adni_data, seed):
 
 
 def test_unported_routes_raise(adni_data, monkeypatch):
-    """What still raises: the observed-only inference family and
-    out-of-core training.  What once raised and now runs: ``bic`` (held
-    against JAX), the verbose transcript (its own parity tests), the
-    masked-filter route (more than 256 patterns, or T(d+l) > 512) and at
-    long T on suffix data the routes of kernel K6 (``MTM_MARKOV_PRECOMP=0``
-    and the sequential multistart; their parity tests are in
-    ``test_torch_longT.py``)."""
+    """What still raises: out-of-core training.  What once raised and now
+    runs: the observed-only inference family (held against JAX here and
+    in ``test_torch_observed.py``), ``bic`` (held against JAX), the
+    verbose transcript (its own parity tests), the masked-filter route
+    (more than 256 patterns, or T(d+l) > 512) and at long T on suffix data
+    the routes of kernel K6 (``MTM_MARKOV_PRECOMP=0`` and the sequential
+    multistart; their parity tests are in ``test_torch_longT.py``).  A
+    name the class does not have is a plain ``AttributeError``."""
     zs, x = adni_data
     jm, tm = _pair(zs, x, 0)
-    for name in ("observed_conditional_log_likelihoods", "observations_mle_cluster_assignment"):
-        with pytest.raises(NotImplementedError, match="observed-only"):
-            getattr(tm, name)()
+    np.testing.assert_allclose(tm.observed_conditional_log_likelihoods(1),
+                               jm.observed_conditional_log_likelihoods(1), rtol=1e-10)
+    np.testing.assert_array_equal(tm.observations_mle_cluster_assignment(),
+                                  jm.observations_mle_cluster_assignment())
+    with pytest.raises(AttributeError, match="no attribute"):
+        tm.print_model  # noqa: B018 — a reporting method, not ported
     np.testing.assert_allclose(tm.bic(), jm.bic(), rtol=1e-12)
     monkeypatch.setenv("MTM_MARKOV_OOC", "1")
     with pytest.raises(NotImplementedError, match="item 9"):
