@@ -898,8 +898,9 @@ def markov_em_compact_multi(
     (bit for bit, objective included, where its scores are finite) but
     with the strict argmax (a NaN score never wins); a ``force`` slot
     takes ``prev`` with switches and objective exactly 0.  CUDA tensors
-    launch ``csrc/markov_em_multi.cu``; CPU tensors take the plain
-    version."""
+    launch ``csrc/markov_em_multi.cu``: int16 Φ its tensor-core body
+    (``csrc/markov_em_multi_mma.cu``), wide Φ its float one; CPU tensors
+    take the plain version."""
     if phi.ndim != 2:
         raise ValueError(f"phi must be (Fc_pad, n), got {tuple(phi.shape)}")
     _check_multi_args(phi.shape[1], prev, wc, phi.device)

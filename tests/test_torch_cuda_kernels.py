@@ -12,7 +12,9 @@ or 1e-12 (float64) of its absmax.  K1 under int16 Φ sums integers, so its
 statistics are exact; its float32 scores may flip an argmax only where the
 float64 top-2 gap is below 1e-4·(1 + |score|).  K3 is K1 for R restarts:
 slot r equals a K1 call on slot r's weights bit for bit (assignments,
-counts, switches, int16 statistics, objective).
+counts, switches, int16 statistics, objective), and its int16 body is
+held so at its edges (one cluster, int16 extremes, n around a chunk and a
+tile, R and C from 1 to 32, the canonical Φ's 144 rows).
 K4a/K4b rebuild Φ from the packed batch in f32/f64: their objectives agree
 with the plain versions to 1e-5 (f32) or 1e-10 (f64) relative.  K8 (the
 sorted E step) may flip an assignment only where the float64 top-2 score
@@ -223,24 +225,70 @@ def test_train_em_markov_cuda_f64_matches_cpu(cuda):
         np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)
 
 
-def _multi_inputs(cuda, C=16, R=5, n=20037, seed=5):
-    pq, _wc, _prev = _em_inputs(cuda, C=C, n=n, seed=seed)
+def _multi_inputs(cuda, C=16, R=5, n=20037, seed=5, Fcp=None, one_cluster=False,
+                  extremes=False, wdtype=torch.float32):
+    """K3's inputs: the bench Φ (Fcp = 112), or with ``Fcp`` a random int16
+    Φ (``extremes``: rows and a whole tile at ±32767 and −32768);
+    ``one_cluster`` gives every cluster the same weights, so the strict
+    argmax sends every instance to cluster 0."""
     rng = np.random.default_rng(seed)
-    wc = torch.tensor(rng.normal(size=(R, C, pq.q.shape[0])) * 1e-3, dtype=torch.float32, device=cuda)
+    if Fcp is None:
+        pq, _wc, _prev = _em_inputs(cuda, C=C, n=n, seed=seed)
+        Fcp = pq.q.shape[0]
+    else:
+        q = rng.integers(-32768, 32768, size=(Fcp, n)).astype(np.int16)
+        if extremes:
+            q[0], q[1], q[2] = -32768, 32767, -32767
+            q[3, ::2], q[3, 1::2] = 32767, -32768
+            q[:, :256] = -32768
+            q[:, 256:512] = 32767
+        pq = mk.PhiQuant(torch.tensor(q, device=cuda), torch.ones(Fcp, device=cuda))
+    wc = torch.tensor(rng.normal(size=(R, C, Fcp)) * 1e-3, dtype=wdtype, device=cuda)
+    if one_cluster:
+        wc = wc[:, :1].expand(R, C, Fcp).contiguous()
     prev = torch.tensor(rng.integers(0, C, size=(R, n)).astype(np.int32), device=cuda)
     prev[:, ::89] = -1
     force = torch.tensor([i % 2 for i in range(R)], dtype=torch.int32, device=cuda)
     return pq, wc, prev, force
 
 
+# K3's int16 body at its edges: C (one n = 8 tile to four), every instance
+# in one cluster, int16 extremes (the hi/lo split), n at a chunk multiple
+# (R = 5: 2048), ±1 (odd n: the unaligned load) and a ragged tile (n % 256
+# != 0), R = 1 and R not a multiple of the restart group, the canonical
+# Φ's 144 rows, float64 weights; Φ too tall for a whole tile at one
+# restart a block (the row-strip blocks): 200 rows (strips of 168, or of
+# 168 in groups of 4 at C = 16), 256, 592 (strips of 72) and 3371 (strips
+# of 8) rows, the last two at the largest Fcp the header's int16 body took
+# at C = 32 and C = 1 with float64 weights
+_MULTI_CASES = {
+    "C3": dict(C=3), "C16": dict(C=16), "C32": dict(C=32), "C1": dict(C=1), "C17": dict(C=17),
+    "one-cluster": dict(R=32, one_cluster=True), "extremes": dict(Fcp=112, extremes=True),
+    "n=chunk": dict(n=8192), "n=chunk-1": dict(n=8191), "n=chunk+1": dict(n=8193),
+    "ragged-tile": dict(n=8296), "R1": dict(R=1), "R13": dict(R=13), "R32": dict(R=32),
+    "Fcp144": dict(Fcp=144, R=8, n=20000), "Fcp144-C32": dict(Fcp=144, C=32, R=13, n=20001),
+    "f64-weights": dict(wdtype=torch.float64),
+    "Fcp200-C32-f64": dict(Fcp=200, C=32, R=5, n=8297, wdtype=torch.float64),
+    "Fcp200-C16": dict(Fcp=200, C=16, R=13, n=8296),
+    "Fcp200-extremes": dict(Fcp=200, C=17, R=3, extremes=True, wdtype=torch.float64),
+    "Fcp200-one-cluster": dict(Fcp=200, C=32, R=4, one_cluster=True, wdtype=torch.float64),
+    "Fcp256-C32-f64": dict(Fcp=256, C=32, R=3, n=4099, wdtype=torch.float64),
+    "Fcp592-C32-f64": dict(Fcp=592, C=32, R=2, n=3001, wdtype=torch.float64),
+    "Fcp3371-C1-f64": dict(Fcp=3371, C=1, R=2, n=1500, wdtype=torch.float64),
+}
+
+
 @pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
-@pytest.mark.parametrize("C", [3, 16, 32])
-def test_em_multi_kernel_matches_plain_and_k1(cuda, assign_mode, C):
-    pq, wc, prev, force = _multi_inputs(cuda, C=C)
+@pytest.mark.parametrize("case", list(_MULTI_CASES))
+def test_em_multi_kernel_matches_plain_and_k1(cuda, assign_mode, case):
+    pq, wc, prev, force = _multi_inputs(cuda, **_MULTI_CASES[case])
     R, C, _F = wc.shape
     before = mk.markov_em_compact_multi.launches
     a, c, s, macc, obj = mk.markov_em_compact_multi(pq.q, prev, wc, force, assign_mode=assign_mode)
     assert mk.markov_em_compact_multi.launches == before + 1
+    again = mk.markov_em_compact_multi(pq.q, prev, wc, force, assign_mode=assign_mode)
+    for x1, x2 in zip((a, c, s, macc, obj), again):
+        assert torch.equal(x1, x2)
     _a, c_p, s_p, macc_p, _o = mk.markov_em_compact_multi_plain(
         pq.q, torch.where(prev >= 0, a, -1), wc, torch.ones_like(force), assign_mode="argmax"
     )
@@ -254,6 +302,8 @@ def test_em_multi_kernel_matches_plain_and_k1(cuda, assign_mode, C):
             assert torch.equal(x_m, x_1), r
         if forced or assign_mode == "prev":
             assert float(obj[r]) == 0.0 and int(s[r]) == 0
+        elif _MULTI_CASES[case].get("one_cluster"):
+            assert bool((a[r][prev[r] >= 0] == 0).all()) and int(c[r][0]) == int((prev[r] >= 0).sum())
         # the objective too: partials per 1024 instances, as K1's blocks
         assert torch.equal(obj[r], k1[4])
 
