@@ -1,8 +1,9 @@
 // Device code shared by the dense E-step kernels K8, K14 (estep_assign.cu)
 // and K12, K13 (estep_logliks.cu): a block's rows of one missingness
-// pattern in a shared-memory tile, one column per thread, and every
-// thread's quadratic form r^T M r against one (D, D) matrix staged through
-// shared memory in strips of kJC columns.
+// pattern in a shared-memory tile, one column per thread (the tile load
+// serves both types), and, in float64, every thread's quadratic form
+// r^T M r against one (D, D) matrix staged through shared memory in
+// strips of kJC columns (float32 takes estep_mma.cuh's tensor cores).
 //
 // Shared memory of a block, in this order (the strip first, so that its
 // rows are 16-byte aligned for vector loads): the strip (D x kJC), the

@@ -59,6 +59,7 @@ _SIGNATURES = {
         _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "mtm_estep_assign_block": [_I, _I, _I],
+    "mtm_estep_tc_plan": [_I, _I, _P],
     "mtm_estep_assign": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
     ],

@@ -228,7 +228,8 @@ def estep_assign_pattern_sorted_t(
 ):
     """K8: the E step over a pattern-sorted batch, ``(assign (n,) int32,
     counts (C,) int32, switches () int32)`` (``pallas_estep.py:463``).
-    CUDA tensors launch ``csrc/estep_assign.cu`` (float32 or float64,
+    CUDA tensors launch ``csrc/estep_assign.cu`` (float32 on the TF32
+    tensor cores with a three-term split, float64 on the CUDA cores;
     contiguous, int32 ``prev``, any D up to the kernel's shared memory:
     512 in both types); CPU tensors take the plain version."""
     _check_args(v_t, prev, means, minv, const, logpi, patterns, sizes)
@@ -277,9 +278,10 @@ def estep_assign_pattern_sorted(
     ``bf16=True`` computes exactly what ``bf16=False`` does.  The JAX
     kernel's flag asks for bfloat16 GEMM operands, and its own docstring
     records that the TPU toolchain promotes those casts back to float32,
-    with bit-identical output; here the products are IEEE multiply-adds in
-    the input type either way, so the flag is accepted and changes
-    nothing."""
+    with bit-identical output; here the kernel's arithmetic is fixed by
+    the input type either way (float32: each operand split into two TF32
+    parts on the tensor cores; float64: IEEE multiply-adds), so the flag
+    is accepted and changes nothing."""
     del bf16  # the same function either way (see above)
     _check_args(v.T, prev, means, minv, const, logpi, patterns, sizes)
     if v.device.type == "cpu":

@@ -37,8 +37,18 @@ log-likelihoods) agree with their plain versions to 1e-4·(1 + |ll|)
 form's sums; K13 equals K12's columns in sorted order bit for bit (one
 body); K14 (K8 on the row-major batch) equals K8 bit for bit.  K15 (the
 Khatri-Rao statistics) agrees with its plain version to 1e-4 (float32)
-or 1e-11 (float64) of the same sums over |v|.  Every kernel gives the
-same bits from run to run, float statistics included.
+or 1e-11 (float64) of the same sums over |v|.  The dense quadratic
+forms' edges (``_QUAD_CASES``: D = 8, 25, 120 and 512, C = 1 and 32, one-row
+segments, a ragged n, |x| ~ 50, NaN and Inf means, a failed
+factorization, rows with no finite value, a float32 overflow), in both
+types for K8, K14, K12 and K13: the log-likelihoods within 2e-5 (float32:
+the TF32 split's ~2⁻²¹ a product and float32 sums) or 1e-12 (float64) of
+``chip_smoke.py`` phase 20's magnitude ``½ aᵀ|M|a + |const|``, and where
+the plain version in the kernel's type is not finite, the same NaN, +Inf
+or −Inf; K8 flipping only at near ties (1e-4 / 1e-9) of the float64
+scores, and taking the plain version's cluster where the plain scores in
+the kernel's type peak at a non-finite value (a NaN wins).  Every kernel
+gives the same bits from run to run, float statistics included.
 """
 
 import numpy as np
@@ -610,6 +620,177 @@ def test_estep_assign_rows_kernel_is_k8(cuda, T, n, dtype):
     k14_bf16 = ek.estep_assign_pattern_sorted(v.to(dtype), *args, sizes=sizes, bf16=True)
     for a, b, c in zip(k14, k8, k14_bf16):
         assert torch.equal(a, b) and torch.equal(a, c)
+
+
+def _quad_inputs(cuda, T, n, seed, C=16, d=5, l=3, scale=1.0, one_rows=0, nan_rows=0, huge_rows=0):
+    """A gapped batch sorted by pattern for the dense quadratic forms (K8,
+    K12-K14), on the card in float64: ``(v (n, D), sizes, patterns,
+    [means, minv, const, logpi], prev)``.  ``scale`` multiplies the data
+    and shifts it by N(0, scale²) per coordinate, with means and noise of
+    the same scale (|x| ~ 50 at 25); ``one_rows`` rows each lose a
+    distinct prefix of z at t=0 (one-row segments); the last ``nan_rows``
+    rows have no finite value (their own segment); ``huge_rows`` rows from
+    n // 2 on hold 1e20 in their first coordinate (a float32 form that
+    overflows to +Inf in every cluster, finite in float64)."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d)) * 2.0
+    x = z @ rng.normal(size=(d, l)) + rng.normal(size=(T, n, l))
+    z = scale * z + rng.normal(scale=scale, size=d)
+    x = scale * x + rng.normal(scale=scale, size=l)
+    lens = rng.choice([max(T // 2, 1), max(T - 2, 1), T], size=n)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past] = np.nan
+    x[past] = np.nan
+    if T > 2:
+        gap = np.where(rng.uniform(size=n) < 0.25)[0]
+        tg = rng.integers(1, min(4, T - 1), size=gap.size)
+        z[tg, gap] = np.nan
+        x[tg, gap] = np.nan
+    x[0, rng.uniform(size=n) < 0.1] = np.nan
+    for i in range(one_rows):
+        z[0, i, : i % d + 1] = np.nan
+        x[0, i, : i // d] = np.nan
+    z[0, n // 2 : n // 2 + huge_rows, 0] = 1e20
+    if nan_rows:
+        z[:, n - nan_rows :] = np.nan
+        x[:, n - nan_rows :] = np.nan
+    v = tem.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
+    patterns, pid = gops.pattern_groups(v)
+    sizes = tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0]))
+    eye = lambda k: np.stack([np.eye(k)] * C) * scale**2  # noqa: E731
+    params = tem.mixture_params_from_numpy(
+        (rng.dirichlet(np.ones(C)), rng.normal(scale=scale, size=(C, d)), eye(d),
+         rng.normal(scale=0.3, size=(C, d, d)), eye(d), rng.normal(size=(C, d, l)), eye(l)),
+        device=cuda, dtype=torch.float64,
+    )
+    means, covs = tem.cluster_joint_moments(params, T)
+    pat = torch.tensor(patterns, device=cuda)
+    minv, const = ek.precompute_cluster_pattern_inverses(means, covs, pat)
+    prev = torch.tensor(rng.integers(0, C, size=n).astype(np.int32), device=cuda)
+    prev[::53] = -1
+    vd = torch.tensor(v[np.argsort(pid, kind="stable")], device=cuda)
+    return vd, sizes, pat, [means, minv, const, torch.log(params.pi)], prev
+
+
+def _loglik_magnitude(v, means, minv, const, sizes):
+    """½ aᵀ|M|a + |const| per cluster and row of a sorted batch, a = |v| +
+    |m| at the finite coordinates (``chip_smoke.py`` phase 20's)."""
+    fin = torch.isfinite(v)
+    out = torch.empty((const.shape[0], v.shape[0]), dtype=torch.float64, device=v.device)
+    off = 0
+    for p, s in enumerate(sizes):
+        for c in range(const.shape[0]):
+            a = torch.where(fin[off : off + s], v[off : off + s].abs() + means[c].abs(), 0.0)
+            out[c, off : off + s] = 0.5 * ((a @ minv[c, p].abs()) * a).sum(1) + const[c, p].abs()
+        off += s
+    return out
+
+
+def _same_bits(p, q):
+    """Equal, NaNs in the same places."""
+    if p.is_floating_point():
+        return bool((p.isnan() == q.isnan()).all()) and torch.equal(p.nan_to_num(), q.nan_to_num())
+    return torch.equal(p, q)
+
+
+def _same_class(got, want):
+    """Where ``want`` is not finite, ``got`` is the same NaN, +Inf or −Inf."""
+    bad = ~torch.isfinite(want)
+    g, w = got[bad], want[bad]
+    return bool((g.isnan() == w.isnan()).all()) and bool((g[~w.isnan()] == w[~w.isnan()]).all())
+
+
+# the tensor-core body's edges (float32) and the same cases for the
+# CUDA-core body (float64): widths, cluster counts, segment shapes, data
+# range and non-finite inputs
+_QUAD_CASES = {
+    "D8": dict(T=1, n=2000),
+    "D25": dict(T=5, d=3, l=2, n=3001),
+    "D120": dict(T=15, n=3000),
+    "D512": dict(T=64, n=700),
+    "C1": dict(T=10, n=3000, C=1),
+    "C32": dict(T=10, n=5000, C=32),
+    "one-row-segments": dict(T=10, n=2000, one_rows=12),
+    "ragged": dict(T=10, n=20000 + 37),
+    "wide-range": dict(T=10, n=6000, scale=25.0),
+    "nan-mean-observed": dict(T=10, n=3000, poison=("means", 3, 0, float("nan"))),
+    "nan-mean-missing": dict(T=10, n=3000, poison=("means", 5, -1, float("nan"))),
+    "inf-mean": dict(T=10, n=3000, poison=("means", 7, 1, float("inf"))),
+    "failed-factorization": dict(T=10, n=3000, poison=("inverse", 2)),
+    "all-nan-rows": dict(T=10, n=3000, nan_rows=3),
+    "overflow": dict(T=10, n=3000, huge_rows=2),
+}
+
+
+def _quad_case(cuda, name):
+    kw = dict(_QUAD_CASES[name])
+    poison = kw.pop("poison", None)
+    v, sizes, pat, ops, prev = _quad_inputs(cuda, kw.pop("T"), kw.pop("n"), sum(map(ord, name)), **kw)
+    if poison and poison[0] == "means":
+        _, c, j, val = poison
+        ops[0] = ops[0].clone()
+        ops[0][c, j] = val
+    elif poison:
+        c, p = poison[1], int(np.argmax(sizes))  # the largest segment
+        ops[1], ops[2] = ops[1].clone(), ops[2].clone()
+        ops[1][c, p] = float("nan")  # as precompute_cluster_pattern_inverses gives it
+        ops[2][c, p] = float("nan")
+    return v, sizes, pat, ops, prev
+
+
+@pytest.mark.parametrize("name", list(_QUAD_CASES))
+@pytest.mark.parametrize("dtype,rel,tie", [(torch.float32, 2e-5, 1e-4), (torch.float64, 1e-12, 1e-9)])
+def test_dense_quadratic_form_kernels_edges(cuda, name, dtype, rel, tie):
+    """K12 and K13 within ``rel`` of the float64 plain version's magnitude
+    (non-finite values in the plain version's class in ``dtype``), K8
+    flipping only at near ties of the float64 scores, and where the plain
+    scores in ``dtype`` peak at a non-finite value (a NaN wins) taking the
+    plain version's cluster; K14 equal to K8 and K12 to K13's columns bit
+    for bit, two calls the same bits; rows with no finite value give
+    exactly ``const``."""
+    v, sizes, pat, (means, minv, const, logpi), prev = _quad_case(cuda, name)
+    C = const.shape[0]
+    ops = tuple(o.to(dtype) for o in (means, minv, const))
+    vk = v.to(dtype)
+    # K13 and K12
+    want = ek.estep_logliks_pattern_sorted_plain(v, means, minv, const, sizes=sizes)
+    plain = ek.estep_logliks_pattern_sorted_plain(vk, *ops, sizes=sizes)
+    mag = _loglik_magnitude(v, means, minv, const, sizes)
+    got = ek.estep_logliks_pattern_sorted(vk, *ops, sizes=sizes)
+    assert got.dtype == dtype and _same_bits(got, ek.estep_logliks_pattern_sorted(vk, *ops, sizes=sizes))
+    assert _same_class(got, plain)
+    fin = torch.isfinite(plain)
+    assert bool(torch.isfinite(got[fin]).all())
+    assert bool(((got.double() - want).abs()[fin] <= rel * mag[fin]).all())
+    vu, pid = _unsorted(vk, sizes)
+    got12 = ek.estep_logliks_pallas(vu.contiguous(), pid, *ops)
+    assert _same_bits(got12, got[:, _perm(v.shape[0], cuda)])
+    if _QUAD_CASES[name].get("nan_rows"):
+        (p0,) = torch.nonzero(~pat.any(1)).flatten().tolist()  # the all-missing pattern
+        assert sizes[p0] == _QUAD_CASES[name]["nan_rows"]
+        off = sum(sizes[:p0])
+        assert bool((got[:, off : off + sizes[p0]] == ops[2][:, p0 : p0 + 1]).all())
+    # K8 and K14
+    args = (prev, *ops, logpi.to(dtype), pat)
+    a, c, s = ek.estep_assign_pattern_sorted_t(vk.T.contiguous(), *args, sizes=sizes)
+    for x1, x2 in zip((a, c, s), ek.estep_assign_pattern_sorted_t(vk.T.contiguous(), *args, sizes=sizes)):
+        assert torch.equal(x1, x2)
+    for x1, x2 in zip((a, c, s), ek.estep_assign_pattern_sorted(vk, *args, sizes=sizes)):
+        assert torch.equal(x1, x2)
+    valid = prev >= 0
+    assert bool((a[~valid] == C).all())
+    scores = ek.sorted_scores(v.T, means, minv, const, logpi, pat, sizes=sizes)  # float64
+    ref = mk._argmax_first(scores)[1]
+    best_k, ref_k = mk._argmax_first(ek.sorted_scores(vk.T, *ops, logpi.to(dtype), pat, sizes=sizes))
+    exact = ~torch.isfinite(best_k)
+    if C > 1:
+        top2 = torch.where(scores.isnan(), -torch.inf, scores).topk(2, dim=0).values
+        near = (top2[0] - top2[1]) < tie * (1 + top2[0].abs())
+    else:
+        near = torch.zeros_like(valid)
+    assert bool((torch.where(exact, a == ref_k, (a == ref) | near) | ~valid).all())
+    assert torch.equal(c.long(), torch.bincount(a[valid].long(), minlength=C))
+    assert int(s) == int(((a != prev) & valid).sum())
 
 
 @pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500), (1, 700)])
