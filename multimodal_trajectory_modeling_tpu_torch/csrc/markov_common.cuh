@@ -4,9 +4,11 @@
 //
 // The ACC-row build is the feature definition of the JAX package's
 // ops/pallas_markov.py:_packed_acc_build, one row at a time: K2
-// (markov_features.cu) writes the referenced rows out as Φ, and K4a/K4b
-// (markov_em_multi.cu) build the same rows into shared memory and score
-// them there, so Φ never reaches device memory.
+// (markov_features.cu) writes the referenced rows out as Φ, and K4a and
+// float64 K4b (markov_em_multi.cuh) build the same rows into shared memory
+// and score them there, so Φ never reaches device memory; float32 K4b
+// (markov_em_packed_mma.cu) builds them from a u tile in shared memory
+// with the same terms in the same order (acc_row_tile).
 
 #pragma once
 

@@ -1,7 +1,10 @@
-// The kernel body of K3, K4a and K4b: hard-assignment EM iterations for R
-// restarts over one batch.  markov_em_multi.cu launches it for K3,
-// markov_em_packed.cu for K4a/K4b; each includes this file, so the two
-// compile in parallel.
+// The kernel body of K3 on wide Φ, K4a and float64 K4b: hard-assignment EM
+// iterations for R restarts over one batch, with float statistics.
+// markov_em_multi.cu launches it for K3 on float32 or float64 Φ,
+// markov_em_packed.cu for K4a and float64 K4b; each includes this file, so
+// the two compile in parallel.  K3 on int16 Φ runs
+// markov_em_multi_mma.cu, float32 K4b markov_em_packed_mma.cu; both take
+// this file's em_multi_reduce and MultiArgs.
 //
 // Replaces these TPU kernels of the JAX package (ops/pallas_markov.py):
 // - K3  markov_em_from_features_multi (body _markov_em_feat_multi_kernel):
@@ -25,12 +28,12 @@
 //
 // Restart r's scores are the same FMA chain over f, in the same order and
 // from the same folded weights, as K1's (markov_em.cu), so on finite
-// scores slot r's assignments, counts, switches and (integer, under int16
-// Φ) statistics equal a K1 call on slot r's inputs bit for bit.
+// scores slot r's assignments, counts and switches equal a K1 call on
+// slot r's inputs bit for bit.
 //
-// Bound on the card: K3 streams Φ (Fcp · n · 2 bytes under int16, 224 MB
-// at n=1e6) once per restart group, and does R · C · Fcp FMAs plus about
-// R · Fcp shared-memory additions per instance; the additions bound it.
+// Bound on the card: K3 streams Φ once per restart group, and does
+// R · C · Fcp FMAs plus about R · Fcp shared-memory additions per
+// instance; the additions bound it.
 // Design:
 // - one thread per instance, the C scores of one restart in registers
 //   (C rounded up to CB = 8, 16 or 32), FMAs on the CUDA cores in the
@@ -45,14 +48,11 @@
 //   adds them in block order.  No global atomics.  The objective's
 //   partials are taken per `sub` = 1024 instances, as K1 takes them per
 //   block, so slot r's objective equals K1's bit for bit too.
-// - under int16 Φ each thread adds its instances' columns to the
-//   statistics with shared-memory atomics (integer sums: exact in any
-//   order).  Float sums would depend on the order of float atomics, so
-//   there the block goes through its instances in tiles of one per
-//   thread, and each restart's tile is added by one thread per feature
-//   row, in instance order (markov_common.cuh:ordered_add).  Every output
-//   is then the same bit for bit from run to run, for int16 and float
-//   alike.
+// - float sums would depend on the order of float atomics, so the block
+//   goes through its instances in tiles of one per thread, and each
+//   restart's tile is added by one thread per feature row, in instance
+//   order (markov_common.cuh:ordered_add).  Every output is then the same
+//   bit for bit from run to run.
 // - K4a/K4b: each thread first builds its instance's Φ column into a
 //   shared-memory tile (markov_common.cuh:acc_row, K2's row build; rows
 //   padded to nt + 1 so ordered_add's row reads miss no bank), then runs
@@ -68,42 +68,40 @@
 // internal linkage: each including file gets its own copy of the kernels
 namespace {
 
-using mtm::Acc;
 using mtm::acc_row;
 using mtm::block_sum;
 using mtm::fused_ma;
 using mtm::is_nan;
 using mtm::ordered_add;
-using mtm::stat_cols;
 
 constexpr int kThreads = 256;        // K3
 constexpr int kPackedThreads = 128;  // K4: one Φ column per thread in smem
 constexpr size_t kMaxSmem = 232448;  // a block's shared-memory limit
 constexpr size_t kSmemTarget = 113 * 1024;  // two blocks on an SM
 
-template <typename PhiT, typename WT>
+// Float statistics (WT) at an odd row stride (C | 1), so that
+// ordered_add's threads (one per row) hit distinct banks.
+template <typename WT>
 size_t multi_smem(int nt, bool packed, int cb, int Fcp, int C, int RG) {
-  using A = Acc<PhiT, WT>;
   const size_t nw = nt / 32;
   return sizeof(WT) * (nw + (packed ? (size_t)Fcp * (nt + 1) : 0) +
-                       (size_t)RG * nt + (size_t)RG * Fcp * cb) +
-         sizeof(typename A::S) * (size_t)RG * Fcp * stat_cols<A::kExact>(C) +
-         sizeof(int) * ((size_t)RG * C + (size_t)RG * nt + nw +
-                        (A::kExact ? 0 : nt));
+                       (size_t)RG * nt + (size_t)RG * Fcp * cb +
+                       (size_t)RG * Fcp * (C | 1)) +
+         sizeof(int) * ((size_t)RG * C + (size_t)RG * nt + nw + nt);
 }
 
 // The largest restart group that keeps two blocks on an SM, else 1 if a
 // block fits at all, else 0.
-template <typename PhiT, typename WT>
+template <typename WT>
 int pick_group(int nt, bool packed, int cb, int Fcp, int C, int R) {
   for (int rg = 8; rg > 1; rg >>= 1)
-    if (rg <= R && multi_smem<PhiT, WT>(nt, packed, cb, Fcp, C, rg) <= kSmemTarget)
+    if (rg <= R && multi_smem<WT>(nt, packed, cb, Fcp, C, rg) <= kSmemTarget)
       return rg;
-  return multi_smem<PhiT, WT>(nt, packed, cb, Fcp, C, 1) <= kMaxSmem ? 1 : 0;
+  return multi_smem<WT>(nt, packed, cb, Fcp, C, 1) <= kMaxSmem ? 1 : 0;
 }
 
 // PACKED: PhiT == WT, and phi is unused (each thread builds its column
-// from u); else u, lens and desc are unused.
+// from u); else u, lens and desc are unused.  PhiT is float or double.
 template <typename PhiT, typename WT, int CB, bool ARGMAX, bool STRICT,
           bool PACKED>
 __global__ void __launch_bounds__(kThreads)
@@ -113,30 +111,26 @@ __global__ void __launch_bounds__(kThreads)
                     const int* __restrict__ prev,
                     const int* __restrict__ force,
                     const WT* __restrict__ wc, int* __restrict__ assign,
-                    typename Acc<PhiT, WT>::S* __restrict__ part_stats,
+                    WT* __restrict__ part_stats,
                     int* __restrict__ part_counts, int* __restrict__ part_sw,
                     WT* __restrict__ part_obj, int64_t n, int Fcp, int C,
                     int R, int RG, int chunk, int sub) {
-  using SAcc = typename Acc<PhiT, WT>::S;
-  constexpr bool EXACT = Acc<PhiT, WT>::kExact;
   const int nt = blockDim.x, nw = nt >> 5, tid = threadIdx.x;
   const int ts = nt + 1;  // the tile's row stride
-  const int cs = stat_cols<EXACT>(C);
+  const int cs = C | 1;
   const int FS = Fcp * cs;  // one restart's statistics
   const int r0 = blockIdx.y * RG;
   const int rg = RG < R - r0 ? RG : R - r0;  // restarts of this block
   // layout, widest type first: red (nw WT), tile (PACKED: Fcp x ts),
-  // obj (RG x nt WT), w (RG x Fcp x CB WT), acc (RG x Fcp x cs SAcc),
-  // counts (RG x C int), sw (RG x nt int), ired (nw int),
-  // na (nt int, float statistics only)
+  // obj (RG x nt WT), w (RG x Fcp x CB WT), acc (RG x Fcp x cs WT),
+  // counts (RG x C int), sw (RG x nt int), ired (nw int), na (nt int)
   extern __shared__ __align__(16) unsigned char smem[];
   WT* s_red = reinterpret_cast<WT*>(smem);
   PhiT* s_tile = reinterpret_cast<PhiT*>(s_red + nw);
   WT* s_obj =
       reinterpret_cast<WT*>(s_tile + (PACKED ? (size_t)Fcp * ts : 0));
   WT* s_w = s_obj + (size_t)RG * nt;
-  SAcc* s_acc =
-      reinterpret_cast<SAcc*>(s_w + (ARGMAX ? (size_t)RG * Fcp * CB : 0));
+  WT* s_acc = s_w + (ARGMAX ? (size_t)RG * Fcp * CB : 0);
   int* s_counts = reinterpret_cast<int*>(s_acc + RG * FS);
   int* s_sw = s_counts + RG * C;
   int* s_ired = s_sw + RG * nt;
@@ -149,7 +143,7 @@ __global__ void __launch_bounds__(kThreads)
       s_w[e] = c < C ? wc[((int64_t)(r0 + rr) * C + c) * Fcp + f] : WT(0);
     }
   }
-  for (int e = tid; e < rg * FS; e += nt) s_acc[e] = SAcc(0);
+  for (int e = tid; e < rg * FS; e += nt) s_acc[e] = WT(0);
   for (int e = tid; e < rg * C; e += nt) s_counts[e] = 0;
   for (int rr = 0; rr < rg; ++rr) {
     s_obj[rr * nt + tid] = WT(0);
@@ -158,9 +152,8 @@ __global__ void __launch_bounds__(kThreads)
   __syncthreads();
 
   // Instance i under restart group slot rr (its Φ column: element f is
-  // col[f * stride]): scores, assignment, counts, objective and switches,
-  // and under int16 Φ the statistics.  Returns the cluster whose
-  // statistics take the instance, or -1.
+  // col[f * stride]): scores, assignment, counts, objective and switches.
+  // Returns the cluster whose statistics take the instance, or -1.
   auto step = [&](int64_t i, const PhiT* col, int64_t stride, int rr) {
     const int r = r0 + rr;
     const int p = prev[(int64_t)r * n + i];
@@ -199,13 +192,6 @@ __global__ void __launch_bounds__(kThreads)
     assign[(int64_t)r * n + i] = valid ? na : C;
     if (!valid || na >= C) return -1;
     atomicAdd(&s_counts[rr * C + na], 1);
-    if constexpr (EXACT) {
-      SAcc* acc = s_acc + rr * FS + na;
-      for (int f = 0; f < Fcp; ++f) {
-        const PhiT v = col[f * stride];
-        if (v != PhiT(0)) atomicAdd(&acc[f * cs], static_cast<SAcc>(v));
-      }
-    }
     return na;
   };
 
@@ -214,42 +200,34 @@ __global__ void __launch_bounds__(kThreads)
   int64_t ob = start / sub;  // the block's first objective partial
   for (int64_t s0 = start; s0 < end; s0 += sub, ++ob) {
     const int64_t s1 = s0 + sub < end ? s0 + sub : end;
-    if constexpr (EXACT) {
-      // integer statistics: each thread adds its own instances
-      static_assert(!PACKED, "the packed batch is float");
-      for (int64_t i = s0 + tid; i < s1; i += nt)
-        for (int rr = 0; rr < rg; ++rr) step(i, phi + i, n, rr);
-    } else {
-      // float statistics: tiles of nt instances, each restart's tile
-      // added by ordered_add; the tile's Φ columns: element (f, j) is
-      // tile[f * tstride + j]
-      for (int64_t i0 = s0; i0 < s1; i0 += nt) {
-        const int64_t i = i0 + tid;
-        const bool live = i < s1;
-        const PhiT* tile;
-        int64_t tstride;
-        if constexpr (PACKED) {
-          tile = s_tile;
-          tstride = ts;
-          if (live) {
-            PhiT* t = s_tile + tid;
-            const int len = lens[i];
-            const WT* ui = u + i;
-            for (int f = 0; f < Fc; ++f)
-              t[f * ts] = acc_row<WT>(desc[3 * f], desc[3 * f + 1],
-                                      desc[3 * f + 2], ui, n, len, steps, s);
-            for (int f = Fc; f < Fcp; ++f) t[f * ts] = PhiT(0);
-          }
-        } else {
-          tile = phi + i0;
-          tstride = n;
+    // tiles of nt instances, each restart's tile added by ordered_add; the
+    // tile's Φ columns: element (f, j) is tile[f * tstride + j]
+    for (int64_t i0 = s0; i0 < s1; i0 += nt) {
+      const int64_t i = i0 + tid;
+      const bool live = i < s1;
+      const PhiT* tile;
+      int64_t tstride;
+      if constexpr (PACKED) {
+        tile = s_tile;
+        tstride = ts;
+        if (live) {
+          PhiT* t = s_tile + tid;
+          const int len = lens[i];
+          const WT* ui = u + i;
+          for (int f = 0; f < Fc; ++f)
+            t[f * ts] = acc_row<WT>(desc[3 * f], desc[3 * f + 1],
+                                    desc[3 * f + 2], ui, n, len, steps, s);
+          for (int f = Fc; f < Fcp; ++f) t[f * ts] = PhiT(0);
         }
-        for (int rr = 0; rr < rg; ++rr) {
-          s_na[tid] = live ? step(i, tile + tid, tstride, rr) : -1;
-          __syncthreads();
-          ordered_add(s_acc + rr * FS, cs, s_na, nt, tile, tstride, Fcp);
-          __syncthreads();
-        }
+      } else {
+        tile = phi + i0;
+        tstride = n;
+      }
+      for (int rr = 0; rr < rg; ++rr) {
+        s_na[tid] = live ? step(i, tile + tid, tstride, rr) : -1;
+        __syncthreads();
+        ordered_add(s_acc + rr * FS, cs, s_na, nt, tile, tstride, Fcp);
+        __syncthreads();
       }
     }
     // the objective partial of these `sub` instances, in K1's order
@@ -267,9 +245,9 @@ __global__ void __launch_bounds__(kThreads)
     if (tid == 0) part_sw[b * R + r0 + rr] = sw;
   }
   const int64_t FC = (int64_t)Fcp * C;
-  SAcc* part = part_stats + (b * R + r0) * FC;
+  WT* part = part_stats + (b * R + r0) * FC;
   for (int e = tid; e < rg * Fcp * C; e += nt)  // row f of restart rr at
-    part[e] = s_acc[EXACT ? e : e / C * cs + e % C];  // (rr * Fcp + f) * cs
+    part[e] = s_acc[e / C * cs + e % C];        // (rr * Fcp + f) * cs
   for (int e = tid; e < rg * C; e += nt)
     part_counts[(b * R + r0) * C + e] = s_counts[e];
 }
@@ -343,13 +321,11 @@ struct MultiArgs {
 template <typename PhiT, typename WT, int CB, bool ARGMAX, bool STRICT,
           bool PACKED>
 int run_multi(const MultiArgs& a) {
-  using SAcc = typename Acc<PhiT, WT>::S;
-  using GAcc = typename Acc<PhiT, WT>::G;
   const int nt = PACKED ? kPackedThreads : kThreads;
   const int cb = ARGMAX ? CB : 0;
-  const int RG = pick_group<PhiT, WT>(nt, PACKED, cb, a.Fcp, a.C, a.R);
+  const int RG = pick_group<WT>(nt, PACKED, cb, a.Fcp, a.C, a.R);
   if (RG == 0) return -1;
-  const size_t smem = multi_smem<PhiT, WT>(nt, PACKED, cb, a.Fcp, a.C, RG);
+  const size_t smem = multi_smem<WT>(nt, PACKED, cb, a.Fcp, a.C, RG);
   const int64_t nblocks = (a.n + a.chunk - 1) / a.chunk;
   auto kern = em_multi_kernel<PhiT, WT, CB, ARGMAX, STRICT, PACKED>;
   cudaError_t err = cudaFuncSetAttribute(
@@ -360,16 +336,16 @@ int run_multi(const MultiArgs& a) {
       static_cast<const PhiT*>(a.phi), static_cast<const WT*>(a.u), a.lens,
       a.desc, a.steps, a.s, a.Fc, a.prev, a.force,
       static_cast<const WT*>(a.wc), a.assign,
-      static_cast<SAcc*>(a.part_stats), a.part_counts, a.part_sw,
+      static_cast<WT*>(a.part_stats), a.part_counts, a.part_sw,
       static_cast<WT*>(a.part_obj), a.n, a.Fcp, a.C, a.R, RG, a.chunk, a.sub);
   err = cudaGetLastError();
   if (err != cudaSuccess) return (int)err;
   const int64_t FC = (int64_t)a.Fcp * a.C;
   const int64_t total = a.R * FC + (int64_t)a.R * a.C + 2 * a.R;
-  em_multi_reduce<SAcc, GAcc, WT>
+  em_multi_reduce<WT, WT, WT>
       <<<(unsigned)((total + 255) / 256), 256, 0, a.stream>>>(
-          static_cast<const SAcc*>(a.part_stats), a.part_counts, a.part_sw,
-          static_cast<const WT*>(a.part_obj), static_cast<GAcc*>(a.macc),
+          static_cast<const WT*>(a.part_stats), a.part_counts, a.part_sw,
+          static_cast<const WT*>(a.part_obj), static_cast<WT*>(a.macc),
           a.counts, a.switches, static_cast<WT*>(a.obj), nblocks,
           (a.n + a.sub - 1) / a.sub, a.R, FC, a.C);
   return (int)cudaGetLastError();

@@ -1,24 +1,40 @@
 // K4a and K4b: markov_em_fused_packed and markov_em_fused_packed_multi of
-// ops/pallas_markov.py (the JAX package), launched on the kernel body of
-// markov_em_multi.cuh with each instance's Φ column built in shared memory.
+// ops/pallas_markov.py (the JAX package).  Float32 K4b goes to the
+// tensor-core body of markov_em_packed_mma.cu; K4a and float64 K4b to the
+// kernel body of markov_em_multi.cuh, with each instance's Φ column built
+// in shared memory.
 
 #include "markov_em_multi.cuh"
+
+extern "C" int mtm_markov_em_packed_f32(
+    const void* u, const void* lens, const void* desc, const void* prev, const void* force,
+    const void* wc, void* assign, void* part_stats, void* part_counts, void* part_sw,
+    void* part_obj, void* macc, void* counts, void* switches, void* obj, long long n, int steps,
+    int s, int Fc, int Fcp, int C, int R, int chunk, int sub, int argmax, int nt, int rg, int cs,
+    void* stream);
 
 // K4a (strict = 0, R = 1) and K4b (strict = 1).  w_kind: 1 float32,
 // 2 float64, also the type of u.  u is (steps * s, n), lens (n,), desc
 // (Fc, 3) the ACC-row table of the compact rows; the rest as for
-// mtm_markov_em_multi, with Φ's Fcp rows built per call.
+// mtm_markov_em_multi, with Φ's Fcp rows built per call.  nt, rg and cs
+// are the host plan of float32 K4b (ops/markov_kernels.py:
+// packed_mma_plan), unread otherwise.
 extern "C" int mtm_markov_em_packed(
     int device, int w_kind, const void* u, const void* lens,
     const void* desc, const void* prev, const void* force, const void* wc,
     void* assign, void* part_stats, void* part_counts, void* part_sw,
     void* part_obj, void* macc, void* counts, void* switches, void* obj,
     long long n, int steps, int s, int Fc, int Fcp, int C, int R, int chunk,
-    int sub, int argmax, int strict, void* stream) {
+    int sub, int argmax, int strict, int nt, int rg, int cs, void* stream) {
   if (!args_ok(n, Fcp, C, R, chunk, sub) || steps <= 0 || s <= 0 || Fc > Fcp)
     return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  if (w_kind == 1 && strict)
+    return mtm_markov_em_packed_f32(u, lens, desc, prev, force, wc, assign, part_stats,
+                                    part_counts, part_sw, part_obj, macc, counts, switches, obj, n,
+                                    steps, s, Fc, Fcp, C, R, chunk, sub, argmax, nt, rg, cs,
+                                    stream);
   MultiArgs a{nullptr,
               u,
               static_cast<const int*>(lens),
@@ -46,9 +62,7 @@ extern "C" int mtm_markov_em_packed(
               sub,
               static_cast<cudaStream_t>(stream)};
   const bool am = argmax != 0;
-  if (w_kind == 1)
-    return strict ? dispatch<float, float, true, true>(a, am)
-                  : dispatch<float, float, false, true>(a, am);
+  if (w_kind == 1) return dispatch<float, float, false, true>(a, am);
   if (w_kind == 2)
     return strict ? dispatch<double, double, true, true>(a, am)
                   : dispatch<double, double, false, true>(a, am);

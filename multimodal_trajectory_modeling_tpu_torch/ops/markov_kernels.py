@@ -13,10 +13,14 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
 - K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em.cu``;
 - K3 ``markov_em_from_features_multi`` (:1658), K4a
   ``markov_em_fused_packed`` (:727) and K4b
-  ``markov_em_fused_packed_multi`` (:898) → ``csrc/markov_em_multi.cu``,
-  one kernel body that reads Φ from device memory (K3) or builds each
-  instance's Φ column in shared memory with K2's row build
-  (``csrc/markov_common.cuh``, K4a/K4b);
+  ``markov_em_fused_packed_multi`` (:898) → ``csrc/markov_em_multi.cu``
+  and ``csrc/markov_em_packed.cu``, one kernel body that reads Φ from
+  device memory (K3 on wide Φ) or builds each instance's Φ column in
+  shared memory with K2's row build (``csrc/markov_common.cuh``, K4a and
+  float64 K4b); int16 Φ takes K3's tensor-core body
+  (``csrc/markov_em_multi_mma.cu``), float32 K4b its own, which stages the
+  packed batch in shared memory and builds Φ tiles there
+  (``csrc/markov_em_packed_mma.cu``, planned by :func:`packed_mma_plan`);
 - K6 ``markov_em_fused_longT`` (:1148), K10 ``markov_assign_suffix``
   (:245) and K11 ``markov_em_fused`` (:438) → ``csrc/markov_em_batch.cu``,
   one kernel body that builds each instance's canonical Φ column in
@@ -62,6 +66,7 @@ from multimodal_trajectory_modeling_tpu_torch.ops import _build
 from multimodal_trajectory_modeling_tpu_torch.ops.markov import canonical_weights
 
 __all__ = [
+    "PackedPlan",
     "PhiQuant",
     "dequantize_phi",
     "fold_weights",
@@ -90,6 +95,8 @@ __all__ = [
     "markov_packed_ok",
     "markov_packed_spec",
     "pack_markov_u",
+    "packed_mma_plan",
+    "packed_mma_smem",
     "phi_scale_from_absmax",
     "quantize_phi",
 ]
@@ -1059,9 +1066,58 @@ def markov_em_fused_packed_multi_plain(
     return assign, counts, switches, macc[:, rows], obj
 
 
+# K4b's float32 body (csrc/markov_em_packed_mma.cu): a block has at most
+# this much shared memory
+_MAX_SMEM = 232448
+
+
+class PackedPlan(NamedTuple):
+    """A block of K4b's float32 body: ``nt`` instances a tile (128, 64 or
+    32), ``rg`` restarts, ``cs`` blocks a cluster (restart groups of one
+    chunk that build each Φ tile once between them) and ``smem`` bytes of
+    shared memory."""
+
+    nt: int
+    rg: int
+    cs: int
+    smem: int
+
+
+def packed_mma_smem(Fcp: int, Ts: int, C: int, rg: int, nt: int, *, argmax: bool) -> int:
+    """Shared memory of a block of K4b's float32 body (``packed_smem`` in
+    the CUDA source): weights ``(rg, Fcp, CB)`` (under argmax) and
+    statistics ``(rg, Fcp, CB + 1)``, the Φ tile ``(Fcp, nt + 1)``, the u
+    tile ``(Ts, nt)``, the objective's ``(rg, 128)`` sums, and the ints:
+    the row table ``(Fcp,)``, lengths ``(nt,)``, assignments and the
+    sorted tile ``(rg, nt)`` each (the latter also the objective's warp
+    sums), cluster counts and offsets ``(rg, 2, 33)``, switches
+    ``(rg,)``."""
+    cb = 8 if C <= 8 else 16 if C <= 16 else 32
+    return 4 * (rg * Fcp * ((cb if argmax else 0) + cb + 1) + Fcp * (nt + 1) + Ts * nt + rg * 128
+                + Fcp + nt + 2 * rg * nt + 2 * rg * 33 + rg)
+
+
+def packed_mma_plan(Fcp: int, Ts: int, C: int, R: int, *, argmax: bool = True):
+    """The block of K4b's float32 body for Fcp rows of Φ, Ts = T·s rows of
+    u, C clusters and R restarts, as a :class:`PackedPlan`: the most
+    restarts a block (up to 8), then the widest tile that fits, and as
+    many of a chunk's ⌈R / rg⌉ restart groups a cluster as divide them (up
+    to 8), so that a chunk's Φ tiles are built ⌈R / (rg · cs)⌉ times; None
+    if no block fits."""
+    for rg in sorted({min(g, R) for g in (8, 4, 2, 1)}, reverse=True):
+        for nt in (128, 64, 32):
+            smem = packed_mma_smem(Fcp, Ts, C, rg, nt, argmax=argmax)
+            if smem <= _MAX_SMEM:
+                groups = -(-R // rg)
+                cs = max(q for q in range(1, 9) if groups % q == 0)
+                return PackedPlan(nt, rg, cs, smem)
+    return None
+
+
 def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
     """Launch ``mtm_markov_em_packed`` (K4a with ``strict=False`` and
-    R = 1, K4b with ``strict=True``); returns the R-restart outputs."""
+    R = 1, K4b with ``strict=True``; float32 K4b on the plan of
+    :func:`packed_mma_plan`); returns the R-restart outputs."""
     if u.dtype not in _W_KINDS or wc.dtype != u.dtype:
         raise ValueError(
             f"u and the weights must share float32 or float64, got {u.dtype}, "
@@ -1082,6 +1138,9 @@ def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
     parts, outs = _multi_buffers(
         R, n, Fcp, C, quant=False, wdtype=wc.dtype, device=u.device
     )
+    plan = None
+    if strict and u.dtype == torch.float32:
+        plan = packed_mma_plan(Fcp, u.shape[0], C, R, argmax=argmax)
     rc = lib.mtm_markov_em_packed(
         _device_index(u),
         _W_KINDS[u.dtype],
@@ -1105,6 +1164,7 @@ def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
         _EM_CHUNK,
         int(argmax),
         int(strict),
+        *(plan[:3] if plan is not None else (0, 0, 0)),
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     _build.check(rc, "markov_em_fused_packed" + ("_multi" if strict else ""))
@@ -1125,7 +1185,7 @@ def markov_em_fused_packed(
     """K4a: one EM iteration that rebuilds Φ from the packed batch, with
     the contract of ``pallas_markov.py:727``: ``(assign (n,), counts (C,),
     switches (), g (F, C), obj ())``; the first-maximum argmax of K1.
-    CUDA tensors launch ``csrc/markov_em_multi.cu`` at R = 1; CPU tensors
+    CUDA tensors launch ``csrc/markov_em_packed.cu`` at R = 1; CPU tensors
     take the plain version."""
     _check_features_args(u, lens, T, d, l)
     _check_mode(assign_mode)
@@ -1167,7 +1227,9 @@ def markov_em_fused_packed_multi(
     with the contract of ``pallas_markov.py:898``: ``(assign (R, n),
     counts (R, C), switches (R,), g (R, F, C), obj (R,))``; the strict
     argmax and ``force_prev`` of K3.  CUDA tensors launch
-    ``csrc/markov_em_multi.cu``; CPU tensors take the plain version."""
+    ``csrc/markov_em_packed.cu``: float32 its own body
+    (``csrc/markov_em_packed_mma.cu``), float64 the body K4a runs; CPU
+    tensors take the plain version."""
     _check_features_args(u, lens, T, d, l)
     _check_multi_args(u.shape[1], prev_assign, Wg, u.device)
     _check_mode(assign_mode)

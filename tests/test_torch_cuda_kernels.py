@@ -16,7 +16,14 @@ counts, switches, int16 statistics, objective), and its int16 body is
 held so at its edges (one cluster, int16 extremes, n around a chunk and a
 tile, R and C from 1 to 32, the canonical Φ's 144 rows).
 K4a/K4b rebuild Φ from the packed batch in f32/f64: their objectives agree
-with the plain versions to 1e-5 (f32) or 1e-10 (f64) relative.  K8 (the
+with the plain versions to 1e-5 (f32) or 1e-10 (f64) relative.  Float32
+K4b runs its own tensor-core body: slot r equals a K4a call on slot r's
+inputs bit for bit in assignments, counts, switches and the objective
+where the scores are finite (K1's FMA chain, K4a's objective order); its
+statistics (float32 sums in instance order within each block) agree to
+2e-5 of the same sums over |u| of the plain version in float64, and where
+its own Φ overflows, the same NaN, +Inf or -Inf; its assignments flip
+only at float64 near ties (1e-4·(1 + |score|)), at most 1e-4 of the rows.  K8 (the
 sorted E step) may flip an assignment only where the float64 top-2 score
 gap is below 1e-4·(1 + |score|) in float32 (1e-9 in float64); its counts
 and switches are exact for its own assignments.  K9 (the sorted M-step
@@ -56,6 +63,7 @@ import pytest
 import torch
 
 from multimodal_trajectory_modeling_tpu_torch.models import em as tem
+from multimodal_trajectory_modeling_tpu_torch.ops import _build
 from multimodal_trajectory_modeling_tpu_torch.ops import estep_kernels as ek
 from multimodal_trajectory_modeling_tpu_torch.ops import gaussian as gops
 from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
@@ -342,9 +350,10 @@ def test_em_multi_kernel_wide_matches_plain(cuda, dtype, rel, C):
         assert abs(float(obj[r]) - float(k1[4])) <= rel * abs(float(k1[4])) + 1e-30
 
 
-def _packed_inputs(cuda, dtype, C=16, R=4, n=20037, seed=6, nan_cluster=None):
-    T, d, l = 10, 5, 3
+def _packed_inputs(cuda, dtype, C=16, R=4, n=20037, seed=6, nan_cluster=None, T=10, d=5, l=3,
+                   scale=1.0):
     u, lens = _batch(T, d, l, n, seed, dtype, cuda)
+    u = u * scale
     rng = np.random.default_rng(seed)
     F = mops.markov_em_feature_dim(d, l)
     params = [
@@ -400,6 +409,143 @@ def test_em_packed_kernels_match_plain(cuda, dtype, rel, nan_cluster):
         assert torch.equal(c, c_q)
         bound = (2e-5 if dtype == torch.float32 else 1e-10) * g_abs + 1e-30
         assert bool(((g - g_q).abs() <= bound).all())
+
+
+# K4b's float32 tensor-core body (csrc/markov_em_packed_mma.cu) at its
+# edges: R around its restart group of 8 (1, 7, 8, 9, 32, 33), C from one
+# n = 8 tile to four (1, 8, 16, 17, 32), n around a 128-instance tile and
+# a chunk (1024 instances at R = 4, 8192 at R = 32), n % 4 == 0 (the
+# cp.async copies) and not, no slot, some and every slot forced, every
+# instance in one cluster, a NaN cluster's weights, |x| ~ 50, a batch whose
+# Φ overflows to +Inf, and the largest Φ the header's float32 body took at
+# C = 32 and C = 16 (T·s = 512, tiles of 32 instances, one restart a block)
+_PACKED_CASES = {
+    "R1": dict(R=1), "R7": dict(R=7), "R8": dict(R=8), "R9": dict(R=9, n=9001),
+    "R32": dict(R=32, n=8193), "R33": dict(R=33, n=8191),
+    "C1": dict(C=1), "C8": dict(C=8), "C17": dict(C=17), "C32": dict(C=32, R=9),
+    "n=tile": dict(n=128), "n=tile-1": dict(n=127), "n=tile+1": dict(n=129),
+    "n=chunk": dict(n=1024), "n=chunk+1": dict(n=1025), "n=4k": dict(n=20040),
+    "R32-n=chunk": dict(R=32, n=8192),
+    "no-forced-slot": dict(force="none"), "all-forced": dict(force="all"),
+    "one-cluster": dict(R=8, one_cluster=True), "nan-cluster": dict(R=8, nan_cluster=1),
+    "wide": dict(R=8, scale=50.0), "overflow": dict(R=8, overflow=True),
+    "Fcp296-C32": dict(T=32, d=9, l=4, C=32, R=3, n=3001),
+    "Fcp352-C16": dict(T=32, d=10, l=4, C=16, R=9, n=2050),
+}
+
+
+def _k4b_case(cuda, R=4, force="some", one_cluster=False, overflow=False, **kw):
+    (T, d, l), u, lens, Wg, prev = _packed_inputs(cuda, torch.float32, R=R, **kw)
+    if one_cluster:
+        Wg = Wg[:, :1].expand(Wg.shape).contiguous()
+    if overflow:  # u products past float32's range: Φ rows of ±Inf
+        lens[5::997] = T
+        lens[700::1999] = T
+        u[:, 5::997] = 3e20
+        u[1::2, 700::1999] = -3e20
+        prev[:, 5::997] = 0
+    forced = {"none": [0] * R, "some": [int(r % 3 == 1) for r in range(R)], "all": [1] * R}[force]
+    return (T, d, l), u, lens, Wg, prev, torch.tensor(forced, dtype=torch.int32, device=cuda)
+
+
+@pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
+@pytest.mark.parametrize("case", list(_PACKED_CASES))
+def test_em_packed_multi_f32_body_at_its_edges(cuda, case, assign_mode):
+    kw = _PACKED_CASES[case]
+    (T, d, l), u, lens, Wg, prev, force = _k4b_case(cuda, **kw)
+    R, C, _F = Wg.shape
+    args = (u, lens, prev, Wg)
+    opts = dict(T=T, d=d, l=l, assign_mode=assign_mode, force_prev=force)
+    before = mk.markov_em_fused_packed_multi.launches
+    out = mk.markov_em_fused_packed_multi(*args, **opts)
+    assert mk.markov_em_fused_packed_multi.launches == before + 1
+    for x1, x2 in zip(out, mk.markov_em_fused_packed_multi(*args, **opts)):
+        if x1.is_floating_point():  # bit for bit, NaN included
+            x1, x2 = x1.view(torch.int32), x2.view(torch.int32)
+        assert torch.equal(x1, x2)
+    a, c, s, g, obj = out
+    valid = prev >= 0
+    assert bool((a[~valid] == C).all())
+    # counts and statistics under the kernel's own assignments: counts
+    # exact; statistics within 2e-5 of the same sums over |u| of the plain
+    # version in float64 (in float32 its masked rows, A minus the last
+    # step, cancel to a few ulps of A, which a cluster of a few short
+    # trajectories shows); where the float32 Φ (K2's, the kernel's bit for
+    # bit) summed per instance in float64 is not finite, the same NaN, +Inf
+    # or -Inf
+    a_in = torch.where(valid, a, -1)
+    plain = mk.markov_em_fused_packed_multi_plain
+    _a, c_q, _s, _g, _o = plain(u, lens, a_in, Wg, T=T, d=d, l=l, assign_mode="prev")
+    assert torch.equal(c, c_q)
+    W64 = Wg.double()
+    _a, _c, _s, g_q, _o = plain(u.double(), lens, a_in, W64, T=T, d=d, l=l, assign_mode="prev")
+    _a, _c, _s, g_abs, _o = plain(u.abs().double(), lens, a_in, W64, T=T, d=d, l=l, assign_mode="prev")
+    phi = mk.markov_materialize_features(u, lens, T=T, d=d, l=l).double()
+    pos = torch.as_tensor(mk.markov_compact_spec(T, d, l)[2], device=cuda)
+    own = torch.stack([
+        torch.zeros((C + 1, phi.shape[0]), dtype=torch.float64, device=cuda)
+        .index_add_(0, torch.where(a_in[r] >= 0, a_in[r], C).long(), phi.T)[:C].T[pos]
+        for r in range(R)
+    ])
+    fin = torch.isfinite(own)
+    assert bool(((g.double() - g_q).abs()[fin] <= 2e-5 * g_abs[fin] + 1e-30).all())
+    for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(cls(g), cls(own))
+    if kw.get("overflow"):
+        assert bool(torch.isposinf(g).any())
+    # scores in float64 from the plain Φ: a flip only at a near tie, on the
+    # rows whose float32 Φ is finite
+    acc, rows = mk._packed_acc(u, lens, torch.float64, T=T, d=d, l=l)
+    fin32 = torch.isfinite(mk._packed_acc(u, lens, torch.float32, T=T, d=d, l=l)[0]).all(dim=0)
+    wacc = mk._fold_acc(Wg.double(), rows, acc.shape[0])
+    for r in range(R):
+        takes_prev = assign_mode == "prev" or bool(force[r])
+        vr = valid[r]
+        if takes_prev:
+            assert bool((a[r][vr] == prev[r][vr]).all()) and int(s[r]) == 0 and float(obj[r]) == 0.0
+            continue
+        assert int(s[r]) == int(((a[r] != prev[r]) & vr).sum())
+        if kw.get("one_cluster"):
+            assert bool((a[r][vr] == 0).all())
+        if kw.get("nan_cluster") is not None:
+            assert not bool((a[r] == kw["nan_cluster"]).any())
+        sc = wacc[r] @ acc
+        if kw.get("nan_cluster") is not None:
+            sc[kw["nan_cluster"]] = -torch.inf  # the strict rule: a NaN never wins
+        ok = fin32 & vr
+        top2 = sc.topk(min(2, C), dim=0).values
+        near = (top2[0] - top2[-1]) < 1e-4 * (1 + top2[0].abs()) if C > 1 else torch.zeros_like(ok)
+        mism = (a[r] != sc.argmax(dim=0).to(torch.int32)) & ok
+        assert bool((~mism | near).all()) and int(mism.sum()) <= max(1, 1e-4 * int(ok.sum()))
+        if kw.get("overflow"):
+            continue
+        best = sc.gather(0, a[r].clamp_max(C - 1).long()[None])[0]
+        ref = float(torch.where(vr, best, 0.0).sum())
+        assert abs(float(obj[r]) - ref) <= 1e-5 * abs(ref) + 1e-30
+    # slot r against a K4a call on slot r's inputs (finite scores: the two
+    # argmax rules agree): assignments, counts, switches and the objective
+    # bit for bit
+    if kw.get("nan_cluster") is not None or kw.get("overflow"):
+        return
+    for r in range(R):
+        takes_prev = assign_mode == "prev" or bool(force[r])
+        k4a = mk.markov_em_fused_packed(u, lens, prev[r].contiguous(), Wg[r], T=T, d=d, l=l,
+                                        assign_mode="prev" if takes_prev else "argmax")
+        for x_b, x_a in zip((a[r], c[r], s[r], obj[r]), (k4a[0], k4a[1], k4a[2], k4a[4])):
+            assert torch.equal(x_b, x_a), r
+        assert bool(((g[r] - k4a[3]).abs() <= 4e-5 * g_abs[r] + 1e-30).all())  # each within 2e-5
+
+
+def test_em_packed_multi_f32_plan_matches_the_kernel(cuda):
+    """The host plan's shared memory is the CUDA source's, and a block fits."""
+    lib = _build.library()
+    for Fcp, Ts, C, R in ((112, 80, 16, 32), (112, 512, 16, 32), (112, 80, 32, 9), (296, 512, 32, 3),
+                          (416, 512, 1, 2), (8, 8, 1, 1)):
+        for argmax in (True, False):
+            plan = mk.packed_mma_plan(Fcp, Ts, C, R, argmax=argmax)
+            assert plan.smem == lib.mtm_markov_em_packed_mma_smem(Fcp, Ts, C, plan.rg, plan.nt,
+                                                                  int(argmax))
+            assert plan.smem <= torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
 
 
 def test_pool_cuda_f64_matches_sequential(cuda):
