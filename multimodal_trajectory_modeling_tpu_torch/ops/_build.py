@@ -75,8 +75,11 @@ _SIGNATURES = {
     "mtm_mstep_stats": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
     ],
-    "mtm_mstep_gram_padded": [_I],
-    "mtm_mstep_gram": [_I, _I, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mtm_mstep_gram_part": [_I],
+    "mtm_mstep_gram_plan": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],
+    "mtm_mstep_gram": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _P,
+    ],
     "mtm_masked_kalman_max_dim": [],
     "mtm_masked_kalman": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "mtm_markov_features_longT_max_dim": [],

@@ -19,6 +19,10 @@ segment the validity of every time step is constant, so the M step's
 any-NaN pair drops become a selection of the valid (t, t′) blocks of
 ``G`` afterwards, in plain torch, as in JAX (``pallas_mstep.py:326-376``).
 The counts come from the ones column, exact in float32 while n ≤ 2²⁴.
+On the card it first lists the rows of each (segment, cluster) in row
+order and cuts each list into pieces of at most ``R`` rows (the piece
+plan, :func:`gram_plan`), then sums one piece a block and adds each
+(segment, cluster)'s pieces in piece order.
 
 Both kernels sum in a fixed order, so two calls give the same bits.  The
 wrappers take their plain versions for CPU tensors only; for CUDA tensors
@@ -30,6 +34,7 @@ from __future__ import annotations
 
 import functools
 
+import numpy as np
 import torch
 
 from multimodal_trajectory_modeling_tpu_torch.ops import _build
@@ -42,6 +47,8 @@ from multimodal_trajectory_modeling_tpu_torch.ops.markov_kernels import (
 )
 
 __all__ = [
+    "gram_plan",
+    "gram_plan_plain",
     "mstep_stats_gram_sorted",
     "mstep_stats_gram_sorted_plain",
     "mstep_stats_pallas",
@@ -50,9 +57,11 @@ __all__ = [
 ]
 
 _KINDS = {torch.float32: 0, torch.float64: 1}
-# rows per chunk of the kernel's per-chunk partials, and a cap on their
-# bytes: long chunks at large D
-_CHUNK = 16384
+# K9: rows a chunk of the row-list pass (one warp a chunk), rows a piece
+# (one block a piece), and a cap on the pieces' partials: longer pieces
+# at large D
+_CHUNK = 1024
+_PIECE_ROWS = 1024
 _PART_BYTES = 512 * 2**20
 # K15's blocks: four on each of the H100's 132 multiprocessors
 _STATS_BLOCKS = 528
@@ -89,19 +98,89 @@ def _grams_plain(v, assign, sizes, C):
     return torch.stack(grams)
 
 
+def _max_pieces(n, P, C, rows):
+    """The most pieces of at most ``rows`` rows that n rows in P·C lists
+    make: the Gram kernel's grid."""
+    return -(-n // rows) + P * C
+
+
+def _plan_workspace(assign, sizes, C):
+    """The chunks of the row-list pass (``segment_table``, cached per set of
+    sizes) and the plan's int32 workspace: ``(table, first, work)``."""
+    table, first = segment_table(tuple(sizes), _CHUNK, assign.device)
+    P = len(sizes)
+    size = 2 * table.shape[0] * C + 2 * (P * C + 1) + assign.shape[0]
+    return table, first, torch.empty(size, dtype=torch.int32, device=assign.device)
+
+
+def _plan_views(work, n, P, C, chunks):
+    """``(idx, list_start, piece_start)`` in the plan's int32 workspace:
+    counts and bases (chunks, C) each, then ``list_start`` and
+    ``piece_start`` (P·C + 1) each, then ``idx`` (n)."""
+    o = 2 * chunks * C
+    pc = P * C + 1
+    return work[o + 2 * pc :], work[o : o + pc], work[o + pc : o + 2 * pc]
+
+
+def gram_plan_plain(assign, sizes, n_clusters, rows):
+    """Plain torch version of :func:`gram_plan`: a stable sort of the rows
+    with an assignment in ``[0, C)`` by ``segment·C + assign``."""
+    n = assign.shape[0]
+    P, C = len(sizes), n_clusters
+    dev = assign.device
+    seg = torch.repeat_interleave(
+        torch.arange(P, device=dev), torch.as_tensor(sizes, device=dev)
+    )
+    a = assign.long()
+    ok = (a >= 0) & (a < C)
+    key = (seg * C + a)[ok]
+    order = torch.argsort(key, stable=True)
+    idx = torch.full((n,), -1, dtype=torch.int32, device=dev)
+    idx[: order.shape[0]] = torch.nonzero(ok).squeeze(1)[order].to(torch.int32)
+    zero = torch.zeros(1, dtype=torch.long, device=dev)
+    lens = torch.bincount(key, minlength=P * C)
+    list_start = torch.cat([zero, torch.cumsum(lens, 0)]).to(torch.int32)
+    pieces = (lens + rows - 1) // rows
+    piece_start = torch.cat([zero, torch.cumsum(pieces, 0)]).to(torch.int32)
+    return idx, list_start, piece_start
+
+
+def gram_plan(assign, sizes, n_clusters, rows=_PIECE_ROWS):
+    """K9's piece plan: ``(idx (n,), list_start (P·C+1,), piece_start
+    (P·C+1,))`` int32.  The rows of segment p with assignment c, in row
+    order, are ``idx[list_start[pc] : list_start[pc + 1]]`` (``pc =
+    p·C + c``); the first ``list_start[-1]`` entries of ``idx`` are
+    defined.  The list of ``pc`` is cut into pieces of ``rows`` rows (the
+    last shorter), numbered from ``piece_start[pc]``.  CUDA tensors run the
+    kernel's own plan (``mtm_mstep_gram_plan``), CPU tensors the plain
+    version."""
+    if sum(sizes) != assign.shape[0]:
+        raise ValueError(f"segment sizes sum to {sum(sizes)}, not n={assign.shape[0]}")
+    if assign.device.type == "cpu":
+        return gram_plan_plain(assign, sizes, n_clusters, rows)
+    if assign.dtype != torch.int32 or not assign.is_contiguous():
+        raise ValueError("assign must be contiguous int32")
+    table, first, work = _plan_workspace(assign, sizes, n_clusters)
+    rc = _build.library().mtm_mstep_gram_plan(
+        _device_index(assign), assign.data_ptr(), table.data_ptr(), first.data_ptr(),
+        work.data_ptr(), len(sizes), n_clusters, table.shape[0], rows,
+        torch.cuda.current_stream(assign.device).cuda_stream,
+    )
+    _build.check(rc, "gram_plan")
+    return _plan_views(work, assign.shape[0], len(sizes), n_clusters, table.shape[0])
+
+
 def _grams_kernel(v, assign, sizes, C):
     n, D = v.shape
     P = len(sizes)
     lib = _build.library()
-    up = lib.mtm_mstep_gram_padded(D)
-    esize = v.element_size()
-    chunk = _CHUNK
-    while chunk < n and (n // chunk + P) * C * up * up * esize > _PART_BYTES:
-        chunk *= 2
-    table, first = segment_table(tuple(sizes), chunk, v.device)
-    part = torch.empty(
-        (table.shape[0], C, up, up), dtype=v.dtype, device=v.device
-    )
+    per_piece = lib.mtm_mstep_gram_part(D)
+    rows = _PIECE_ROWS
+    while rows < n and _max_pieces(n, P, C, rows) * per_piece * v.element_size() > _PART_BYTES:
+        rows *= 2
+    pieces = _max_pieces(n, P, C, rows)
+    table, first, work = _plan_workspace(assign, sizes, C)
+    part = torch.empty(pieces * per_piece, dtype=v.dtype, device=v.device)
     G = torch.empty((P, C, D + 1, D + 1), dtype=v.dtype, device=v.device)
     rc = lib.mtm_mstep_gram(
         _device_index(v),
@@ -110,23 +189,27 @@ def _grams_kernel(v, assign, sizes, C):
         assign.data_ptr(),
         table.data_ptr(),
         first.data_ptr(),
+        work.data_ptr(),
         part.data_ptr(),
         G.data_ptr(),
         D,
         P,
         C,
         table.shape[0],
+        rows,
+        pieces,
         torch.cuda.current_stream(v.device).cuda_stream,
     )
     _build.check(rc, "mstep_stats_gram_sorted")
     return G
 
 
-def _select_stats(G, patterns, T, d, l):
+def _select_stats_plain(G, patterns, T, d, l):
     """The statistics of the valid (t, t′) blocks of ``G``: ``(tstats,
     mstats, istats, pi_counts)``.  A block counts where the segment's
     pattern observes every coordinate of its steps (a where-select), and
-    the sums run over segments and steps at once."""
+    the sums run over segments and steps at once, block by block: the
+    plain version of :func:`_select_stats`."""
     P, C = G.shape[:2]
     Td = T * d
     one = G.shape[-1] - 1  # the ones column
@@ -176,13 +259,83 @@ def _select_stats(G, patterns, T, d, l):
     return tstats, mstats, istats, nseg.sum(0)
 
 
+@functools.lru_cache(maxsize=16)
+def _selection(T: int, d: int, l: int, device: torch.device):
+    """Where the statistics sit in ``G`` (u = T(d+l) + 1): ``(index (K, T)
+    of flat u·u positions, kind (K,), shapes)``.  Entry k of the fields
+    below (``shapes``, in order: the transition, measurement and first
+    state statistics) takes, at step t, the entry ``index[k, t]`` of its
+    segment's Gram where the step is valid for its kind: 0 the pair
+    (z_t, z_{t+1}), t < T−1; 1 the pair (z_t, x_t); 2 the first state,
+    t = 0.  Invalid steps point at entry 0."""
+    u = T * (d + l) + 1
+    one = u - 1
+    t = np.arange(T)
+    t1 = np.minimum(t + 1, T - 1)
+
+    def z(s):  # (steps, d) rows of z_s in G
+        return s[:, None] * d + np.arange(d)
+
+    def x(s):
+        return T * d + s[:, None] * l + np.arange(l)
+
+    ones = np.full((T, 1), one)
+
+    def block(rows, cols):  # (rows, cols, T) flat positions
+        return (rows[:, :, None] * u + cols[:, None, :]).transpose(1, 2, 0)
+
+    def vec(cols):  # the ones row: (cols, T)
+        return (one * u + cols).T
+
+    fields = [
+        (0, block(z(t), z(t))), (0, block(z(t), z(t1))), (0, block(z(t1), z(t1))),
+        (0, vec(z(t))), (0, vec(z(t1))), (0, vec(ones)[0]),
+        (1, block(z(t), z(t))), (1, block(z(t), x(t))), (1, block(x(t), x(t))),
+        (1, vec(z(t))), (1, vec(x(t))), (1, vec(ones)[0]),
+        (2, vec(ones)[0]), (2, vec(z(t))), (2, block(z(t), z(t))),
+    ]
+    index = np.concatenate([f.reshape(-1, T) for _k, f in fields])
+    kind = np.concatenate([np.full(f.size // T, k) for k, f in fields])
+    valid = np.stack([t < T - 1, np.ones(T, bool), t == 0])[kind]
+    index = np.where(valid, index, 0)
+    shapes = [f.shape[:-1] for _k, f in fields]
+    return (torch.as_tensor(index, device=device), torch.as_tensor(kind, device=device), shapes)
+
+
+def _select_stats(G, patterns, T, d, l):
+    """The kernel wrapper's selection: :func:`_select_stats_plain`'s
+    statistics, with every statistic's entries gathered from ``G`` at once
+    (``_selection``) and summed over segments and steps, in ~14 launches
+    where the plain version takes ~37."""
+    P, C, u = G.shape[0], G.shape[1], G.shape[-1]
+    Td = T * d
+    index, kind, shapes = _selection(T, d, l, G.device)
+    zv = patterns[:, :Td].reshape(P, T, d).all(-1)  # (P, T)
+    xv = patterns[:, Td:].reshape(P, T, l).all(-1)
+    off = torch.zeros_like(zv[:, :1])
+    pv = torch.cat([zv[:, :-1] & zv[:, 1:], off], 1)  # transition pairs
+    iv = torch.cat([zv[:, :1], off.expand(P, T - 1)], 1)  # the first state
+    valid = torch.stack([pv, zv & xv, iv])[kind].transpose(0, 1)  # (P, K, T)
+    g = G.reshape(P, C, u * u)[:, :, index]  # (P, C, K, T)
+    sums = torch.where(valid[:, None], g, 0.0).sum((0, 3))  # (C, K)
+    out, k = [], 0
+    for shape in shapes:
+        n = int(np.prod(shape, dtype=np.int64))
+        out.append(sums[:, k : k + n].reshape(C, *shape))
+        k += n
+    tstats = rops.RegressionStats(*out[:6])
+    mstats = rops.RegressionStats(*out[6:12])
+    istats = rops.MomentStats(*out[12:])
+    return tstats, mstats, istats, G[:, :, u - 1, u - 1].sum(0)
+
+
 def mstep_stats_gram_sorted_plain(
     v, assign, patterns, *, sizes, T, d, l, n_clusters
 ):
     """Plain torch version of :func:`mstep_stats_gram_sorted`."""
     _check_args(v, assign, patterns, sizes, T, d, l)
     G = _grams_plain(v, assign, sizes, n_clusters)
-    return _select_stats(G, patterns, T, d, l)
+    return _select_stats_plain(G, patterns, T, d, l)
 
 
 def mstep_stats_gram_sorted(

@@ -28,7 +28,11 @@ sorted E step) may flip an assignment only where the float64 top-2 score
 gap is below 1e-4·(1 + |score|) in float32 (1e-9 in float64); its counts
 and switches are exact for its own assignments.  K9 (the sorted M-step
 Grams) agrees with the plain version in float64 to 1e-4 (float32) or
-1e-11 (float64) of the same sums over |v|: summation order.  K5 (the
+1e-11 (float64) of the same sums over |v|: summation order; its member
+counts are exact, at D = 80, 512 and 9 on random, 90%-one-cluster,
+one-cluster, sparse and out-of-range assignments, a one-row segment's
+lone cluster and lists many pieces long; its row lists equal a stable
+argsort bit for bit, and its wrapper reads nothing back to the host.  K5 (the
 canonical Φ at any T) rounds every product and sum on its own, in the
 plain version's order, so it equals the plain version bit for bit.  K7
 (the masked Kalman filter) agrees with the plain version to 1e-10
@@ -647,15 +651,71 @@ def test_estep_kernel_matches_plain(cuda, T, n, dtype, tie):
         assert torch.equal(x1, x2)
 
 
-@pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500)])
+# K9's shapes: D = T(d+l) = 80 (the bench), 512 (the sorted route's
+# widest) and 9 (a row of 36 bytes: copies of one element)
+_GRAM_SHAPES = {"D80": (10, 5, 3, 20037), "D512": (64, 5, 3, 1500), "D9": (3, 2, 1, 20037)}
+_GRAM_CASES = ("random", "ninety", "one", "empty_clusters", "outside", "one_row_segment", "many_pieces")
+
+
+def _gram_inputs(cuda, shape, case, C=16, seed=11):
+    """A gapped batch sorted by pattern, on the card in float64, and an
+    int32 assignment: ``(v (n, D), sizes, patterns, (T, d, l), assign)``.
+    Lengths T//2, T-1 or T; a quarter lose one interior step, a tenth x at
+    t=0; one +Inf entry; row n-1 has no state (a one-row segment); an
+    empty segment appended.  ``case``: uniformly random; 90% in one
+    cluster; every row in one cluster (also ``many_pieces``); three
+    clusters, the rest empty; a tenth C and a tenth -1 (no cluster);
+    every row in cluster 0 but the one-row segment's, alone in C-1."""
+    T, d, l, n = _GRAM_SHAPES[shape]
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d)) * 2.0
+    x = z @ rng.normal(size=(d, l)) + rng.normal(size=(T, n, l))
+    lens = rng.choice([max(1, T // 2), T - 1, T], size=n)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past] = np.nan
+    x[past] = np.nan
+    gap = np.where((rng.uniform(size=n) < 0.25) & (lens >= 3))[0]
+    tg = rng.integers(1, lens[gap] - 1)
+    z[tg, gap] = np.nan
+    x[tg, gap] = np.nan
+    x[0, rng.uniform(size=n) < 0.1] = np.nan
+    z[0, 3, 0] = np.inf
+    z[:, -1] = np.nan
+    v = tem.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
+    patterns, pid = gops.pattern_groups(v)
+    order = np.argsort(pid, kind="stable")
+    patterns = np.concatenate([patterns, np.ones((1, v.shape[1]), bool)])  # empty
+    sizes = tuple(int(c) for c in np.bincount(pid, minlength=patterns.shape[0]))
+    assert 0 in sizes and 1 in sizes
+    a = rng.integers(0, C, size=n)
+    if case == "ninety":
+        a = np.where(rng.uniform(size=n) < 0.9, 3, a)
+    elif case in ("one", "many_pieces"):
+        a = np.full(n, 5)
+    elif case == "empty_clusters":
+        a = rng.choice([0, 7, 15], size=n)
+    elif case == "outside":
+        u = rng.uniform(size=n)
+        a = np.where(u < 0.1, C, np.where(u < 0.2, -1, a))
+    elif case == "one_row_segment":
+        a = np.zeros(n)
+        a[order == n - 1] = C - 1
+    return (torch.tensor(v[order], device=cuda), sizes, torch.tensor(patterns, device=cuda), (T, d, l),
+            torch.tensor(a.astype(np.int32), device=cuda))
+
+
+@pytest.mark.parametrize("case", _GRAM_CASES)
+@pytest.mark.parametrize("shape", sorted(_GRAM_SHAPES))
 @pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-11)])
-def test_mstep_gram_kernel_matches_plain(cuda, T, n, dtype, rel):
-    """K9 at D = 80 and D = 512; an assignment outside [0, C) counts
-    nowhere."""
-    v, sizes, pat, ops, _prev, assign = _dense_inputs(cuda, T, n, seed=T + 1)
-    C = ops[0].shape[0]
-    assign[7] = C
-    kw = dict(sizes=sizes, T=T, d=5, l=3, n_clusters=C)
+def test_mstep_gram_kernel_matches_plain(cuda, monkeypatch, case, shape, dtype, rel):
+    """K9 at D = 80, 512 and 9 on every assignment case; an assignment
+    outside [0, C) counts nowhere; ``many_pieces`` cuts the lists into
+    pieces of 32 rows (hundreds a segment at D = 80)."""
+    v, sizes, pat, (T, d, l), assign = _gram_inputs(cuda, shape, case)
+    if case == "many_pieces":
+        monkeypatch.setattr(msk, "_PIECE_ROWS", 32)
+    C = 16
+    kw = dict(sizes=sizes, T=T, d=d, l=l, n_clusters=C)
     before = msk.mstep_stats_gram_sorted.launches
     got = msk.mstep_stats_gram_sorted(v.to(dtype), assign, pat, **kw)
     assert msk.mstep_stats_gram_sorted.launches == before + 1
@@ -665,9 +725,60 @@ def test_mstep_gram_kernel_matches_plain(cuda, T, n, dtype, rel):
     for g, w, m in zip(flat(got), flat(want), flat(mag)):
         assert g.dtype == dtype
         assert bool(((g.double() - w).abs() <= rel * m + 1e-30).all())
-    assert float(got[3].sum()) == n - 1  # the member counts, exact
+    valid = (assign >= 0) & (assign < C)
+    # the member counts, exact
+    assert torch.equal(got[3].double(), torch.bincount(assign[valid].long(), minlength=C).double())
     for x1, x2 in zip(flat(got), flat(msk.mstep_stats_gram_sorted(v.to(dtype), assign, pat, **kw))):
         assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("C", [16, 5000])
+@pytest.mark.parametrize("rows", [1, 32, 1024])
+@pytest.mark.parametrize("case", _GRAM_CASES)
+def test_mstep_gram_plan_matches_plain(cuda, case, rows, C):
+    """K9's row lists and pieces (``mtm_mstep_gram_plan``) against a stable
+    argsort of segment·C + assign, bit for bit; at C = 5000 most of a
+    chunk's clusters are empty."""
+    _v, sizes, _pat, _shape, assign = _gram_inputs(cuda, "D80", case, C=C)
+    idx, list_start, piece_start = msk.gram_plan(assign, sizes, C, rows)
+    idx_p, list_start_p, piece_start_p = msk.gram_plan_plain(assign, sizes, C, rows)
+    total = int(list_start_p[-1])
+    assert torch.equal(list_start, list_start_p)
+    assert torch.equal(piece_start, piece_start_p)
+    assert torch.equal(idx[:total], idx_p[:total])
+
+
+def test_mstep_gram_kernel_many_clusters(cuda):
+    """K9 at C = 5000 (more clusters than a chunk's rows), D = 9: the plain
+    version's statistics in float64 to 1e-11, exact counts."""
+    C = 5000
+    v, sizes, pat, (T, d, l), assign = _gram_inputs(cuda, "D9", "outside", C=C)
+    kw = dict(sizes=sizes, T=T, d=d, l=l, n_clusters=C)
+    got = msk.mstep_stats_gram_sorted(v, assign, pat, **kw)
+    want = msk.mstep_stats_gram_sorted_plain(v, assign, pat, **kw)
+    mag = msk.mstep_stats_gram_sorted_plain(v.abs(), assign, pat, **kw)
+    flat = lambda out: [f for st in out[:3] for f in st] + [out[3]]  # noqa: E731
+    for g, w, m in zip(flat(got), flat(want), flat(mag)):
+        assert bool(((g - w).abs() <= 1e-11 * m + 1e-30).all())
+    valid = (assign >= 0) & (assign < C)
+    assert torch.equal(got[3], torch.bincount(assign[valid].long(), minlength=C).double())
+
+
+def test_mstep_gram_adds_no_host_sync(cuda):
+    """After a warm-up call (which caches the chunk table), K9's wrapper
+    reads nothing back to the host."""
+    v, sizes, pat, (T, d, l), assign = _gram_inputs(cuda, "D80", "ninety")
+    v = v.float()
+    kw = dict(sizes=sizes, T=T, d=d, l=l, n_clusters=16)
+    want = msk.mstep_stats_gram_sorted(v, assign, pat, **kw)
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        got = msk.mstep_stats_gram_sorted(v, assign, pat, **kw)
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+    flat = lambda out: [f for st in out[:3] for f in st] + [out[3]]  # noqa: E731
+    assert all(torch.equal(x1, x2) for x1, x2 in zip(flat(got), flat(want)))
 
 
 def test_dense_kernels_refuse_bad_arguments(cuda):

@@ -42,14 +42,14 @@ import argparse
 import ctypes
 import json
 import os
-import shutil
 import subprocess
 import sys
-import tempfile
 from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent.parent
 sys.path.insert(0, str(ROOT))
+
+from variant_build import build, card_line, event_ms  # noqa: E402  (tools/, the script's own directory)
 
 # the clock64() reads of --clocks: (anchor, text that replaces it)
 _CLOCKS = [
@@ -99,28 +99,11 @@ def build_variant(src_dir: Path, body: str, drop_stats: bool, out_dir: Path,
     for the new tree) compiled alone, the statistics call removed if
     ``drop_stats``, the phase clocks read if ``clocks``; the library
     loaded."""
-    from multimodal_trajectory_modeling_tpu_torch.ops import _build
-
-    work = Path(tempfile.mkdtemp(dir=out_dir))
-    for f in src_dir.iterdir():
-        if f.suffix in (".cu", ".cuh"):
-            shutil.copy(f, work / f.name)
-    target = work / ("markov_em_multi.cuh" if body == "old" else "markov_em_packed_mma.cu")
-    text = target.read_text()
-    if drop_stats:
-        assert text.count(_STATS_CALL[body]) == 1, f"{target.name}: the statistics call moved"
-        text = text.replace(_STATS_CALL[body], "")
-    for anchor, new in (_CLOCKS + (_CHASE if chase else [])) if clocks else ():
-        assert text.count(anchor) == 1, f"{target.name}: a clock anchor moved: {anchor!r}"
-        text = text.replace(anchor, new)
-    target.write_text(text)
-    srcs = [work / "markov_em_packed.cu"] + ([work / "markov_em_packed_mma.cu"] if body == "new" else [])
-    lib = work / "lib.so"
-    cmd = [_build._nvcc(), *_build._FLAGS, "-shared", "-o", str(lib), *map(str, srcs)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise SystemExit(f"nvcc failed for {body} drop_stats={drop_stats}:\n{proc.stderr[-3000:]}")
-    return ctypes.CDLL(str(lib))
+    target = "markov_em_multi.cuh" if body == "old" else "markov_em_packed_mma.cu"
+    edits = ([(_STATS_CALL[body], "")] if drop_stats else []) + (
+        (_CLOCKS + (_CHASE if chase else [])) if clocks else [])
+    srcs = ["markov_em_packed.cu"] + (["markov_em_packed_mma.cu"] if body == "new" else [])
+    return build(src_dir, srcs, out_dir, edits={target: edits})[0]
 
 
 def main() -> int:
@@ -139,8 +122,7 @@ def main() -> int:
     if not torch.cuda.is_available():
         print("k4b_phase_split: no CUDA card", file=sys.stderr)
         return 2
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-                         capture_output=True, text=True).stdout.strip()
+    smi = card_line()
     print(smi, flush=True)
 
     dev = torch.device("cuda")
@@ -187,17 +169,6 @@ def main() -> int:
                 raise SystemExit(f"launch failed: {rc}")
         return call
 
-    def ms(call, reps=5):
-        call()
-        torch.cuda.synchronize()
-        e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        e0.record()
-        for _ in range(reps):
-            call()
-        e1.record()
-        e1.synchronize()
-        return e0.elapsed_time(e1) / reps
-
     bodies = [("new", ROOT / "multimodal_trajectory_modeling_tpu_torch" / "csrc")]
     if args.old is not None:
         bodies.append(("old", args.old))
@@ -208,7 +179,7 @@ def main() -> int:
         row = {}
         for name, drop, argmax in (("full", False, True), ("no_stats", True, True),
                                    ("prev", False, False), ("prev_no_stats", True, False)):
-            row[name + "_ms"] = round(ms(launcher(libs[drop], body, argmax)), 4)
+            row[name + "_ms"] = round(event_ms(launcher(libs[drop], body, argmax), 5), 4)
         row["build_ms"] = row["prev_no_stats_ms"]
         row["scores_ms"] = round(row["full_ms"] - row["prev_ms"], 4)
         row["stats_ms"] = round(row["full_ms"] - row["no_stats_ms"], 4)
