@@ -1322,10 +1322,12 @@ def train_em_sorted(
 # ----------------------------------------------------------------------
 
 
-def _filter_logliks(params: MixtureParams, packed) -> torch.Tensor:
-    """``(C, n)`` masked-filter log-densities of the packed batch (K7)."""
+def _filter_logliks(params: MixtureParams, packed: kk.MaskedBatch) -> torch.Tensor:
+    """``(C, n)`` masked-filter log-densities of the packed batch (K7), in
+    the caller's row order."""
     return kk.kalman_masked_logliks_packed(
-        *packed, params.m, params.S, params.A, params.G, params.H, params.L
+        packed.zp, packed.xp, params.m, params.S, params.A, params.G, params.H, params.L,
+        plan=packed.plan,
     )
 
 
@@ -1336,8 +1338,9 @@ def masked_logliks_kalman(
 ) -> torch.Tensor:
     """``(C, n)`` log-likelihoods of the observed entries under arbitrary
     missingness through the O(T) masked filter (``em.py:320``): kernel K7
-    for CUDA tensors, its plain version for CPU tensors."""
-    return _filter_logliks(params, kk.pack_masked_kalman(z, x))
+    for CUDA tensors, its plain version for CPU tensors.  The batch is
+    packed and planned for this call."""
+    return _filter_logliks(params, kk.plan_masked_batch(z, x))
 
 
 def complete_data_loglik_masked_kalman(
@@ -1345,12 +1348,12 @@ def complete_data_loglik_masked_kalman(
     z: torch.Tensor,  # (T, n, d)
     x: torch.Tensor,  # (T, n, l)
     *,
-    packed=None,  # (zp, xp) from pack_masked_kalman, to skip the packing
+    packed=None,  # kk.MaskedBatch from plan_masked_batch, to skip the packing
 ) -> torch.Tensor:
     """The hard-assignment complete-data objective under a fresh E step
     through the masked filter, as a 0-d tensor (``em.py:352``)."""
     if packed is None:
-        packed = kk.pack_masked_kalman(z, x)
+        packed = kk.plan_masked_batch(z, x)
     return _hard_objective(params.pi, _filter_logliks(params, packed))
 
 
@@ -1364,18 +1367,18 @@ def train_em_masked_kalman(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     min_members: int = 3,
-    packed=None,  # (zp, xp) from pack_masked_kalman, to skip the packing
+    packed=None,  # kk.MaskedBatch from plan_masked_batch, to skip the packing
 ):
     """Hard EM under arbitrary per-coordinate missingness with an O(T) E
     step (``em.py:1329``): ``(params, assign, iterations, status)``.  The
-    batch is packed for K7 once per fit; each iteration is one K7 pass,
-    the assignment, counts and switches, one status read, and the masked
-    M step :func:`mstep` (plain torch).  The status protocol is
+    batch is packed and planned for K7 once per fit; each iteration is
+    one K7 pass, the assignment, counts and switches, one status read, and
+    the masked M step :func:`mstep` (plain torch).  The status protocol is
     :func:`train_em`'s; on suffix missingness the trajectory is
     :func:`train_em`'s too (the filter marginal is the joint marginal)."""
     C = params0.pi.shape[0]
     if packed is None:
-        packed = kk.pack_masked_kalman(z, x)
+        packed = kk.plan_masked_batch(z, x)
 
     def estep_fn(params, prev):
         return _hard_estep(params.pi, _filter_logliks(params, packed), prev, C)
@@ -1426,7 +1429,7 @@ def emstep_masked_kalman_multi(
     force_prev=None,  # (R,) — 1 ⇒ the slot keeps prev (its initial M step)
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
-    packed=None,  # (zp, xp) from pack_masked_kalman — shared
+    packed=None,  # kk.MaskedBatch from plan_masked_batch — shared
 ):
     """One masked-filter EM iteration for R restarts over one batch
     (``em.py:1445``): ``(new_params, assign (R, n), counts (R, C),
@@ -1435,7 +1438,7 @@ def emstep_masked_kalman_multi(
     R, C = params.pi.shape
     n = z.shape[1]
     if packed is None:
-        packed = kk.pack_masked_kalman(z, x)
+        packed = kk.plan_masked_batch(z, x)
     flat = MixtureParams(*(p.reshape(R * C, *p.shape[2:]) for p in params))
     ll = _filter_logliks(flat, packed).reshape(R, C, n)
     scores = torch.log(params.pi)[:, :, None] + ll
@@ -1492,7 +1495,7 @@ def train_em_masked_kalman_pool(
     alpha: float = 0.0,
     min_members: int = 3,
     sync_every: int = 8,
-    packed=None,  # (zp, xp) from pack_masked_kalman
+    packed=None,  # kk.MaskedBatch from plan_masked_batch
 ) -> tuple[list, PoolStats]:
     """Slot-pool multistart on the masked-filter trainer (``em.py:1585``;
     opt-in, ``MTM_MASKED_POOL=1``): the scheduler of
@@ -1505,7 +1508,7 @@ def train_em_masked_kalman_pool(
     R = max(1, min(R, len(params_list)))
     K = max(1, int(sync_every))
     if packed is None:
-        packed = kk.pack_masked_kalman(z, x)
+        packed = kk.plan_masked_batch(z, x)
 
     def window(*state):
         return _pool_window_masked_kalman(

@@ -1080,7 +1080,7 @@ class MMLinGaussSS_marginalizable:
                 )
         elif masked:
             z, x = self._masked_batch()
-            packed = kk.pack_masked_kalman(z, x)
+            packed = kk.plan_masked_batch(z, x)
             if os.environ.get("MTM_MASKED_POOL", "0") == "1" and r_fuse > 1 and n_starts > 0:
                 results, pool_stats = em.train_em_masked_kalman_pool(
                     [c._stacked_params() for c in candidates],

@@ -352,12 +352,15 @@ def masked_filter_step_split(mu, P, z_t, x_t, oz_t, ox_t, Hs, As, Gs, Ls, d: int
     return mu_next, P_next, ll_z + ll_x
 
 
-def masked_filter_scan(zc, xc, oz, ox, m, S, A, G, H, L) -> torch.Tensor:
+def masked_filter_scan(zc, xc, oz, ox, m, S, A, G, H, L, extent=None) -> torch.Tensor:
     """The split-step filter over T steps for every (cluster, row):
     ``zc (T, d, n)``/``xc (T, l, n)`` the data with missing entries
     zeroed, ``oz``/``ox`` their 0/1 masks in the compute dtype, parameters
     with a leading cluster axis C.  Returns ``(C, n)``; the lanes are
-    ``(C, n)`` tensors and the parameters ``(C, 1)`` columns."""
+    ``(C, n)`` tensors and the parameters ``(C, 1)`` columns.  With
+    ``extent (n,)`` a row's log-density takes only its steps ``t <
+    extent`` (K7's loop bound: each row stops at its last observed
+    step)."""
     T, d, n = zc.shape
     l = xc.shape[1]
     C = m.shape[0]
@@ -376,7 +379,7 @@ def masked_filter_scan(zc, xc, oz, ox, m, S, A, G, H, L) -> torch.Tensor:
             list(ox[t]), Hs, As, Gs, Ls, d, l,
         )
         Ptri = _tri_pack(P_next, d)
-        ll = ll + dll
+        ll = ll + dll if extent is None else torch.where(t < extent, ll + dll, ll)
     return ll
 
 

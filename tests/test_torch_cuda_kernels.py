@@ -35,10 +35,14 @@ lone cluster and lists many pieces long; its row lists equal a stable
 argsort bit for bit, and its wrapper reads nothing back to the host.  K5 (the
 canonical Φ at any T) rounds every product and sum on its own, in the
 plain version's order, so it equals the plain version bit for bit.  K7
-(the masked Kalman filter) agrees with the plain version to 1e-10
-relative in float64 and to 1e-4·(1 + |ll|) in float32 (rsqrtf, fused
-multiply-adds and the order of the step's sums); a row with no finite
-entry gives exactly 0.0.  K6, K10 and K11 (the raw-batch EM passes)
+(the masked Kalman filter) agrees with the plain version over all T to
+1e-10 relative in float64 and to 1e-4·(1 + |ll|) in float32 (rsqrtf,
+fused multiply-adds, the order of the step's sums, one log of the
+pivots' product) with each row stopped at its extent, on the planned
+batch, on the caller's order with a plan built per call, and with
+extents that vary inside a tile; a row with no finite entry gives
+exactly 0.0, and a zero, negative, infinite or NaN pivot the plain
+version's class.  K6, K10 and K11 (the raw-batch EM passes)
 build K5's Φ column and run K1's step on it: float32 assignments may
 flip only at near ties of the float64 scores, objectives and statistics
 agree to 1e-4 (float32) or 1e-10 (float64) relative, and K6 equals K5
@@ -1233,6 +1237,124 @@ def test_masked_kalman_kernel_refuses_bad_arguments(cuda):
     big = _masked_inputs(cuda, torch.float32, 2, 50, 9, 1, 1, seed=2)
     with pytest.raises(ValueError, match="at most 8"):
         kk.kalman_masked_logliks_packed(*big)
+
+
+def _planned_inputs(device, dtype, T, n, d, l, C, seed, suffix=True, p=0.3):
+    """Per-coordinate NaNs (p), lengths drawn from 0..T (``suffix``), rows
+    0 and 7 all NaN; returns ``(z, x)`` on the device and C parameter
+    rows."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d))
+    x = rng.normal(size=(T, n, l))
+    z[rng.random(z.shape) < p] = np.nan
+    x[rng.random(x.shape) < p] = np.nan
+    if suffix:
+        past = np.arange(T)[:, None] >= rng.integers(0, T + 1, size=n)[None, :]
+        z[past], x[past] = np.nan, np.nan
+    z[:, [0, 7]] = np.nan
+    x[:, [0, 7]] = np.nan
+    params = (
+        rng.normal(size=(C, d)), np.stack([np.eye(d) * 0.8] * C),
+        rng.normal(scale=0.3, size=(C, d, d)), np.stack([np.eye(d) * 0.5] * C),
+        rng.normal(size=(C, d, l)), np.stack([np.eye(l) * 0.4 + 0.1] * C),
+    )
+    t = lambda a: torch.tensor(a, dtype=dtype, device=device)  # noqa: E731
+    return t(z), t(x), [t(a) for a in params]
+
+
+def _hold_planned(zt, xt, params, dtype, plan=None):
+    """K7 on the planned batch (or on ``plan`` with the batch in the
+    caller's order) against the plain version in the caller's order: the
+    tolerance, all-NaN rows exactly 0.0, two calls the same bits, one
+    launch a call; returns the kernel's output."""
+    zc, xc = kk.pack_masked_kalman(zt, xt)
+    if plan is None:
+        zp, xp, plan = kk.plan_masked_batch(zt, xt)
+    else:
+        zp, xp = zc, xc
+    before = kk.kalman_masked_logliks_packed.launches
+    got = kk.kalman_masked_logliks_packed(zp, xp, *params, plan=plan)
+    assert kk.kalman_masked_logliks_packed.launches == before + 1
+    assert torch.equal(got, kk.kalman_masked_logliks_packed(zp, xp, *params, plan=plan))
+    _assert_masked_close(got, kk.kalman_masked_logliks_packed_plain(zc, xc, *params), dtype)
+    assert bool((got[:, [0, 7]] == 0.0).all())
+    return got
+
+
+@pytest.mark.parametrize("d,l", [(5, 3), (2, 4), (2, 3), (3, 2), (1, 3), (1, 1), (4, 3), (8, 8)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_kernel_planned_batch(cuda, d, l, dtype):
+    """Every instantiated shape and the general one ((4, 3), (8, 8)) on
+    the trainers' planned batch, rows of every extent 0..T: the plain
+    version over all T, and the unplanned call's bits."""
+    zt, xt, params = _planned_inputs(cuda, dtype, 9, 2053, d, l, 3, seed=d * 10 + l)
+    got = _hold_planned(zt, xt, params, dtype)
+    assert torch.equal(got, kk.kalman_masked_logliks_packed(*kk.pack_masked_kalman(zt, xt), *params))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_kernel_extents_vary_inside_a_tile(cuda, dtype):
+    """The caller's own order with each row's true extent (no sort): every
+    tile mixes extents 0..T."""
+    zt, xt, params = _planned_inputs(cuda, dtype, 12, 1500, 5, 3, 4, seed=5)
+    rows, extent = kk.masked_plan(*kk.pack_masked_kalman(zt, xt))
+    by_row = torch.empty_like(extent)
+    by_row[rows.long()] = extent
+    plan = kk.MaskedPlan(torch.arange(zt.shape[1], dtype=torch.int32, device=cuda), by_row)
+    assert len(set(by_row[:128].tolist())) > 5
+    _hold_planned(zt, xt, params, dtype, plan)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_kernel_rows_of_one_extent(cuda, dtype):
+    """No suffix: every row but the all-NaN ones runs all T steps."""
+    zt, xt, params = _planned_inputs(cuda, dtype, 10, 3001, 5, 3, 3, seed=6, suffix=False, p=0.05)
+    plan = kk.plan_masked_batch(zt, xt).plan
+    assert set(plan.extent.tolist()) == {0, 10}
+    _hold_planned(zt, xt, params, dtype)
+
+
+@pytest.mark.parametrize("T,n,C", [(10, 1_000_037, 4), (128, 5000, 16)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_kernel_large_n_and_long_T(cuda, T, n, C, dtype):
+    zt, xt, params = _planned_inputs(cuda, dtype, T, n, 5, 3, C, seed=T, p=0.05)
+    _hold_planned(zt, xt, params, dtype)
+
+
+_ODD_PIVOTS = {  # parameter row: (S, L, H edits) that make a pivot odd
+    0: "S00 = 0", 1: "S11 < 0", 2: "S00 = inf", 3: "S22 = nan", 4: "L00 < 0", 5: "L11 = inf",
+    6: "L22 = nan", 7: "L0 = 0, H0 = 0", 8: "S00 subnormal",
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_masked_kalman_nonfinite_pivots_keep_the_plain_class(cuda, dtype):
+    """A pivot that is zero, negative, infinite, NaN or subnormal: where
+    the plain version is NaN, +Inf or -Inf the kernel is too, elsewhere
+    within the tolerance."""
+    zt, xt, params = _planned_inputs(cuda, dtype, 6, 700, 5, 3, len(_ODD_PIVOTS), seed=9, suffix=False, p=0.2)
+    m, S, A, G, H, L = params
+    S[0, 0, 0] = 0.0
+    S[1, 1, 1] = -1.0
+    S[2, 0, 0] = float("inf")
+    S[3, 2, 2] = float("nan")
+    L[4, 0, 0] = -5.0
+    L[5, 1, 1] = float("inf")
+    L[6, 2, 2] = float("nan")
+    L[7, 0, :], L[7, :, 0], H[7, :, 0] = 0.0, 0.0, 0.0
+    S[8, 0, 0] = 1e-40 if dtype == torch.float32 else 1e-310
+    zp, xp, plan = kk.plan_masked_batch(zt, xt)
+    got = kk.kalman_masked_logliks_packed(zp, xp, *params, plan=plan)
+    want = kk.kalman_masked_logliks_packed_plain(*kk.pack_masked_kalman(zt, xt), *params)
+
+    def cls(v):
+        return torch.where(v.isnan(), 2, torch.where(v.isinf(), v.sign().long(), 0))
+
+    assert torch.equal(cls(got), cls(want))
+    assert bool((~torch.isfinite(want)).any(1)[:8].all())  # each odd row reaches the log-density
+    fin = torch.isfinite(want)
+    rel = 1e-10 if dtype == torch.float64 else 1e-4
+    assert bool(((got - want).abs()[fin] <= rel * (1 + want.abs()[fin])).all())
 
 
 @pytest.mark.parametrize("d,l", [(5, 3), (2, 4), (4, 3)])
