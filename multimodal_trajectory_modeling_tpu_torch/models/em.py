@@ -271,16 +271,19 @@ def _markov_features(
       ``MTM_MARKOV_PRECOMP``, on), the compact Φ (K2); else ``phi`` is
       None and every iteration rebuilds Φ from ``u``;
     - long T: the canonical Φ (K5), no packed batch.  Without
-      ``precompute`` ``u`` is the transposed pair ``(z_t, x_t)`` and
-      ``phi`` None: every iteration of the single-restart trainer runs K6
-      on the raw batch.  The R-restart callers pass ``longT_always_phi``
-      (their kernels have no such mode)."""
+      ``precompute`` ``u`` is the transposed batch in its plan's row order
+      (:class:`~..ops.markov_kernels.RawBatch`: the plan's permutation
+      folded into the transposing copy) and ``phi`` None: every iteration
+      of the single-restart trainer runs K6 on it.  The R-restart callers
+      pass ``longT_always_phi`` (their kernels have no such mode)."""
     T, n, d = z.shape
     l = x.shape[-1]
     if precompute is None:
         precompute = os.environ.get("MTM_MARKOV_PRECOMP", "1") == "1"
     if phi_store == "env":
         phi_store = _resolve_phi_store(z.dtype)
+    if not (markov_packed_ok(T, d, l) or precompute or longT_always_phi):
+        return mk.plan_raw_batch(z, x, lens), None
     z_t = x_t = None
     if u is None or not markov_packed_ok(T, d, l):
         z_t = z.permute(0, 2, 1).reshape(T * d, n)
@@ -293,8 +296,6 @@ def _markov_features(
             return u, None
         phi = pack_markov_features(u, lens, T=T, d=d, l=l)
     else:
-        if not (precompute or longT_always_phi):
-            return (z_t, x_t), None
         phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
         del z_t, x_t
         u = None
@@ -341,26 +342,28 @@ def emstep_markov(
     phi=None,  # (Fc_pad, n) tensor or PhiQuant (_markov_features)
     *,
     T: int,
-    u=None,  # (T·s, n) packed batch, or at long T the pair (z_t, x_t)
+    u=None,  # (T·s, n) packed batch, or at long T a RawBatch
     assign_mode: str = "argmax",
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
 ):
     """One EM iteration: ``(new_params, assign, counts, switches)``, from
     Φ (K1) or, without Φ, from the packed batch ``u`` (K4a) or at long T
-    from the transposed batch ``u = (z_t, x_t)`` (K6, the grouped
-    weights; ``em.py:794-815``).  ``assign_mode="prev"`` is the initial M
-    step (statistics under ``prev_assign``, no E step)."""
+    from the planned transposed batch ``u`` (:func:`_markov_features`; K6,
+    the grouped weights; ``em.py:794-815``), whose row order
+    ``prev_assign`` and the returned assignment then follow.
+    ``assign_mode="prev"`` is the initial M step (statistics under
+    ``prev_assign``, no E step)."""
     d = params.m.shape[1]
     l = params.H.shape[2]
     if phi is not None:
         assign, counts, switches, g, _obj = mk.markov_em_from_features(
             phi, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode
         )
-    elif isinstance(u, tuple):
+    elif isinstance(u, mk.RawBatch):
         assign, counts, switches, g, _obj = mk.markov_em_fused_longT(
-            *u, lens, prev_assign, *_grouped_weights(params), T=T, d=d, l=l,
-            assign_mode=assign_mode,
+            u.z_t, u.x_t, u.lens, prev_assign, *_grouped_weights(params), T=T, d=d, l=l,
+            assign_mode=assign_mode, plan=u.plan,
         )
     elif u is not None:
         assign, counts, switches, g, _obj = mk.markov_em_fused_packed(
@@ -416,8 +419,9 @@ def train_em_markov(
     ``precompute`` (default ``MTM_MARKOV_PRECOMP``, on) materializes Φ
     once (K2; at long T the canonical Φ, K5) and runs every iteration
     from it (K1); off, every iteration rebuilds Φ from the packed batch
-    (K4a), or at long T from the transposed batch (K6).  Both give the
-    same trajectory in float64."""
+    (K4a), or at long T from the transposed batch in its plan's row
+    order (K6; the assignment is permuted into that order once and back
+    once).  Both give the same trajectory in float64."""
     T = z.shape[0]
     C = params0.pi.shape[0]
     assign0 = assign0.to(torch.int32)
@@ -427,6 +431,9 @@ def train_em_markov(
     u, phi = _markov_features(z, x, lens, precompute=precompute)
     if phi is not None:
         u = None  # Φ carries the iterations; free the packed batch
+    rows = u.plan.rows.long() if isinstance(u, mk.RawBatch) else None
+    if rows is not None:
+        assign0 = assign0[rows]  # the plan's order inside the loop
 
     def step(params, prev, mode):
         return emstep_markov(
@@ -454,6 +461,8 @@ def train_em_markov(
         if status == STATUS_RUNNING:
             params = new_params
         it += 1
+    if rows is not None:
+        assign = torch.empty_like(assign).index_copy_(0, rows, assign)
     return params, assign, it, status
 
 

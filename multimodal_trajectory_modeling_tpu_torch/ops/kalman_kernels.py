@@ -18,11 +18,11 @@ A step past a row's last observed step adds exactly −0.0 to its
 log-density (every term is selected to 0, the dummy pivots are 1, w = 0),
 so the kernel runs each row only up to its extent, 1 + its last step with
 a finite z or x entry (0 for a row with no finite entry, which gives
-exactly 0.0).  A plan (:func:`masked_plan`, plain torch on the batch's
-device, no host synchronisation) holds each row's extent and a stable
-order of the rows by extent, longest first, so that the kernel's tiles of
-128 consecutive rows run nearly uniform loop counts and a warp's reads of
-z and x stay contiguous.  Trainers build it once per fit with the packed
+exactly 0.0).  A plan (:func:`.row_plan.masked_plan`, plain torch on the
+batch's device, no host synchronisation; K6 takes the same) holds each
+row's extent and a stable order of the rows by extent, longest first, so
+that the kernel's tiles of 128 consecutive rows run nearly uniform loop
+counts and a warp's reads of z and x stay contiguous.  Trainers build it once per fit with the packed
 batch (:func:`plan_masked_batch`: the batch permuted once into the plan's
 order, one copy as before); the kernel writes each result to the
 caller's row.  A caller that passes ``(zp, xp)`` in its own order without
@@ -55,6 +55,7 @@ import torch
 from multimodal_trajectory_modeling_tpu_torch.ops import _build
 from multimodal_trajectory_modeling_tpu_torch.ops import kalman as kops
 from multimodal_trajectory_modeling_tpu_torch.ops.markov_kernels import _device_index
+from multimodal_trajectory_modeling_tpu_torch.ops.row_plan import MaskedPlan, masked_plan
 
 __all__ = [
     "MaskedBatch",
@@ -72,16 +73,6 @@ __all__ = [
 _KINDS = {torch.float32: 0, torch.float64: 1}
 
 
-class MaskedPlan(NamedTuple):
-    """The order K7 takes the rows in: ``rows (n,)`` int32, the caller's
-    row at each position; ``extent (n,)`` int32, each position's row's
-    last step with a finite z or x entry plus one (0: none),
-    non-increasing."""
-
-    rows: torch.Tensor
-    extent: torch.Tensor
-
-
 class MaskedBatch(NamedTuple):
     """The batch in K7's layout, its rows in ``plan``'s order:
     ``zp (T, d, n)``, ``xp (T, l, n)``, NaNs kept."""
@@ -96,18 +87,6 @@ def pack_masked_kalman(z: torch.Tensor, x: torch.Tensor):
     (T, n, l)`` in the kernel's layout, in the caller's row order, NaNs
     kept."""
     return z.permute(0, 2, 1).contiguous(), x.permute(0, 2, 1).contiguous()
-
-
-def masked_plan(zp: torch.Tensor, xp: torch.Tensor) -> MaskedPlan:
-    """The plan of a batch ``zp (T, d, n)``, ``xp (T, l, n)`` (any
-    strides): each row's extent and the rows ordered by extent, longest
-    first, ties in row order (a stable sort)."""
-    T = zp.shape[0]
-    seen = (zp == zp).any(1) | (xp == xp).any(1)  # (T, n)
-    step = torch.arange(1, T + 1, dtype=torch.int32, device=zp.device)[:, None]
-    extent = torch.where(seen, step, 0).amax(0).to(torch.int32)
-    order = torch.sort(T - extent, stable=True).indices
-    return MaskedPlan(order.to(torch.int32), extent[order].contiguous())
 
 
 def plan_masked_batch(z: torch.Tensor, x: torch.Tensor) -> MaskedBatch:

@@ -24,9 +24,13 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
 - K6 ``markov_em_fused_longT`` (:1148), K10 ``markov_assign_suffix``
   (:245) and K11 ``markov_em_fused`` (:438) → ``csrc/markov_em_batch.cu``,
   one kernel body that builds each instance's canonical Φ column in
-  shared memory with K5's row build (``csrc/markov_longT_rows.cuh``) and
-  runs K1's step on it; the grouped weights of K6 and K10 are folded into
-  the canonical layout first (:func:`..markov.canonical_weights`).
+  shared memory with K5's row arithmetic (``csrc/markov_longT_rows.cuh``)
+  from the batch staged in shared memory, and runs K1's step on it; the
+  grouped weights of K6 and K10 are folded into the canonical layout first
+  (:func:`..markov.canonical_weights`).  A plan (:func:`plan_raw_batch`:
+  K7's row plan, :mod:`.row_plan`) orders the rows by extent so that each
+  stops at its last observed step; the long-T trainer keeps its batch and
+  assignments in that order (:class:`RawBatch`).
 
 - Layout (``markov_packed_spec``, ``pack_markov_u``,
   ``markov_compact_spec``): the batch is packed per time step as
@@ -56,6 +60,7 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
 
 from __future__ import annotations
 
+import ctypes
 import functools
 from typing import NamedTuple
 
@@ -64,10 +69,12 @@ import torch
 
 from multimodal_trajectory_modeling_tpu_torch.ops import _build
 from multimodal_trajectory_modeling_tpu_torch.ops.markov import canonical_weights
+from multimodal_trajectory_modeling_tpu_torch.ops.row_plan import MaskedPlan, masked_plan
 
 __all__ = [
     "PackedPlan",
     "PhiQuant",
+    "RawBatch",
     "dequantize_phi",
     "fold_weights",
     "markov_assign_suffix",
@@ -96,6 +103,8 @@ __all__ = [
     "markov_packed_spec",
     "pack_markov_u",
     "packed_mma_plan",
+    "plan_raw_batch",
+    "raw_batch_plan",
     "packed_mma_smem",
     "phi_scale_from_absmax",
     "quantize_phi",
@@ -478,11 +487,15 @@ def _check_longT_args(z_t, x_t, lens, T, d, l):
 
 
 def markov_materialize_features_longT_plain(
-    z_t: torch.Tensor, x_t: torch.Tensor, lens: torch.Tensor, *, T: int, d: int, l: int
+    z_t: torch.Tensor, x_t: torch.Tensor, lens: torch.Tensor, *, T: int, d: int, l: int,
+    extent: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain torch version of :func:`markov_materialize_features_longT`:
     the TPU kernel's per-step accumulation (``pallas_markov.py:1763``),
-    the steps added in order."""
+    the steps added in order.  With ``extent`` (n,), each row's sums stop
+    at its extent, as the raw-batch kernels' build does (the ``len`` and
+    ``1`` rows are written whatever the extent): bit-equal to the sums
+    over all T, since every step past a row's extent adds ±0."""
     _check_longT_args(z_t, x_t, lens, T, d, l)
     n, dtype = z_t.shape[1], z_t.dtype
     F_pad = _canonical_rows(d, l)
@@ -502,18 +515,24 @@ def markov_materialize_features_longT_plain(
     for t in range(T):
         zc, zn, xc = fin(z3[t]), fin(z3[min(t + 1, T - 1)]), fin(x3[t])
         vm = ((lens > t + 1) & (t < T - 1)).to(dtype)[None, :]
+        takes = None if extent is None else (extent > t)[None, :]
+
+        def add(g, k, v):
+            r = rows(g, k)
+            acc[r] = acc[r] + v if takes is None else torch.where(takes, acc[r] + v, acc[r])
+
         zz = kron(zc, zc)
-        acc[rows("g1", d * d)] += zz
-        acc[rows("g2", d * d)] += vm * zz
-        acc[rows("g3", d * d)] += kron(zc, zn * vm)
-        acc[rows("g4", l * l)] += kron(xc, xc)
-        acc[rows("g5", d * l)] += kron(zc, xc)
-        acc[rows("g7", d)] += vm * zc
-        acc[rows("g8", d)] += zc
-        acc[rows("g9", l)] += xc
+        add("g1", d * d, zz)
+        add("g2", d * d, vm * zz)
+        add("g3", d * d, kron(zc, zn * vm))
+        add("g4", l * l, kron(xc, xc))
+        add("g5", d * l, kron(zc, xc))
+        add("g7", d, vm * zc)
+        add("g8", d, zc)
+        add("g9", l, xc)
         if t == 0:
-            acc[rows("g6", d * d)] += zz
-            acc[rows("g10", d)] += zc
+            add("g6", d * d, zz)
+            add("g10", d, zc)
             acc[rows("len", 1)] += lens.to(dtype)[None, :]
             acc[rows("one", 1)] += 1.0
     return acc
@@ -1258,11 +1277,70 @@ markov_em_fused_packed_multi.launches = 0
 # ----------------------------------------------------------------------
 
 
-def _check_batch_args(z_t, x_t, lens, prev, T, d, l, assign_mode="argmax"):
+class RawBatch(NamedTuple):
+    """The transposed batch in its plan's row order, as the long-T trainer
+    keeps it for K6: ``z_t (T·d, n)``, ``x_t (T·l, n)``, ``lens (n,)``
+    int32, and ``plan`` (``plan.rows``: the caller's row at each
+    position; ``plan.extent``: each position's extent)."""
+
+    z_t: torch.Tensor
+    x_t: torch.Tensor
+    lens: torch.Tensor
+    plan: MaskedPlan
+
+
+def raw_batch_plan(z_t: torch.Tensor, x_t: torch.Tensor, *, T: int, d: int, l: int) -> MaskedPlan:
+    """The plan of a transposed batch ``z_t (T·d, n)``, ``x_t (T·l, n)``:
+    K7's rule (:func:`.row_plan.masked_plan`) on its ``(T, d, n)`` and
+    ``(T, l, n)`` views."""
+    n = z_t.shape[1]
+    return masked_plan(z_t.view(T, d, n), x_t.view(T, l, n))
+
+
+def plan_raw_batch(z: torch.Tensor, x: torch.Tensor, lens: torch.Tensor) -> RawBatch:
+    """The batch ``z (T, n, d)``, ``x (T, n, l)`` (any strides) transposed
+    for K6 in its plan's row order, one copy each (the permutation is
+    folded into the transposing copy), with ``lens`` in that order.
+    Trainers call it once per fit."""
+    T, n, d = z.shape
+    l = x.shape[-1]
+    zp, xp = z.permute(0, 2, 1), x.permute(0, 2, 1)
+    plan = masked_plan(zp, xp)
+    return RawBatch(zp.index_select(2, plan.rows).reshape(T * d, n), xp.index_select(2, plan.rows).reshape(T * l, n),
+                    lens.to(torch.int32).index_select(0, plan.rows), plan)
+
+
+def _check_batch_args(z_t, x_t, lens, prev, T, d, l, assign_mode="argmax", plan=None):
     _check_longT_args(z_t, x_t, lens, T, d, l)
     if prev.shape != lens.shape or prev.device != lens.device:
         raise ValueError(f"prev must be ({lens.shape[0]},) on the batch's device, got {tuple(prev.shape)}")
     _check_mode(assign_mode)
+    n = lens.shape[0]
+    if plan is not None and any(
+        a.shape != (n,) or a.dtype != torch.int32 or a.device != lens.device or not a.is_contiguous() for a in plan
+    ):
+        raise ValueError(f"the plan must be two contiguous int32 ({n},) tensors on the batch's device")
+
+
+def _in_caller_order(plan, z_t, x_t, lens, prev):
+    """The planned batch's columns put back in the caller's order (the
+    plain versions' way with a plan: their sums then run over the rows in
+    the caller's order, as without one)."""
+    rows = plan.rows.long()
+
+    def back(a):
+        out = torch.empty_like(a)
+        out[..., rows] = a
+        return out
+
+    return back(z_t), back(x_t), back(lens), back(prev)
+
+
+def _planned(plain, z_t, x_t, lens, prev, plan, **kw):
+    """``plain`` on a planned batch: the batch in the caller's order, the
+    assignments back in the plan's."""
+    out = plain(*_in_caller_order(plan, z_t, x_t, lens, prev), **kw)
+    return (out[0][plan.rows.long()], *out[1:])
 
 
 def _kron(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
@@ -1301,15 +1379,21 @@ class _Batch:
 
 def markov_em_fused_longT_plain(
     z_t, x_t, lens, prev_assign, W1, W2, W3, *, T: int, d: int, l: int,
-    assign_mode: str = "argmax",
+    assign_mode: str = "argmax", plan: MaskedPlan | None = None,
 ):
     """Plain torch version of :func:`markov_em_fused_longT`, the JAX
     kernels' algebra step by step (``pallas_markov.py:992``, ``:1057``):
     per t the grouped score GEMMs ``W1·[z⊗z, x⊗x, z⊗x] + vm·W2·[z⊗z,
     z⊗zn]`` (plus ``W3`` on the end features at t = 0), the first-max
     argmax, then the statistics as per-t GEMMs against the one-hot, the
-    vm_{t+1} groups masked (g2, g3 = z⊗(zn·vm), g7)."""
-    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    vm_{t+1} groups masked (g2, g3 = z⊗(zn·vm), g7).  With a plan, the
+    batch and ``prev_assign`` are in its order and so are the
+    assignments; the sums run over the caller's order, so the result is
+    the one without a plan bit for bit."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode, plan)
+    if plan is not None:
+        return _planned(markov_em_fused_longT_plain, z_t, x_t, lens, prev_assign, plan, W1=W1, W2=W2, W3=W3,
+                        T=T, d=d, l=l, assign_mode=assign_mode)
     b = _Batch(z_t, x_t, lens, T, d, l)
     C, dtype = W1.shape[0], z_t.dtype
     scores = None
@@ -1349,14 +1433,17 @@ def markov_em_fused_longT_plain(
 
 
 def markov_assign_suffix_plain(
-    z_t, x_t, lens, prev_assign, W1, W2, W3, *, T: int, d: int, l: int
+    z_t, x_t, lens, prev_assign, W1, W2, W3, *, T: int, d: int, l: int, plan: MaskedPlan | None = None
 ):
     """Plain torch version of :func:`markov_assign_suffix`, the JAX
     kernel's features in its order (``pallas_markov.py:165``): per t
     ``W1·[z⊗z, x⊗x, z⊗x]``, per t < T-1 ``W2·[vm·z⊗z, z⊗z_{t+1}]`` (the
     missing z_{t+1} read as 0), then ``W3`` on the end features; the
-    first-max argmax."""
-    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l)
+    first-max argmax.  A plan as in :func:`markov_em_fused_longT_plain`."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, plan=plan)
+    if plan is not None:
+        return _planned(markov_assign_suffix_plain, z_t, x_t, lens, prev_assign, plan, W1=W1, W2=W2, W3=W3,
+                        T=T, d=d, l=l)
     b = _Batch(z_t, x_t, lens, T, d, l)
     scores = torch.zeros((W1.shape[0], b.n), dtype=z_t.dtype, device=z_t.device)
     for t in range(T):
@@ -1373,14 +1460,18 @@ def markov_assign_suffix_plain(
 
 def markov_em_fused_plain(
     z_t, x_t, lens, prev_assign, Wg, *, T: int, d: int, l: int,
-    assign_mode: str = "argmax",
+    assign_mode: str = "argmax", plan: MaskedPlan | None = None,
 ):
     """Plain torch version of :func:`markov_em_fused`, the JAX kernel's
     algebra (``pallas_markov.py:320``): the g-layout features summed over
     t (g2 and g7 under vm_{t+1}, g3 = Σ_{t<T-1} z_t⊗z_{t+1} with a
     missing z_{t+1} read as 0), the scores ``Wg·g``, the first-max argmax
-    and the statistics ``g·onehotᵀ``."""
-    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    and the statistics ``g·onehotᵀ``.  A plan as in
+    :func:`markov_em_fused_longT_plain`."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode, plan)
+    if plan is not None:
+        return _planned(markov_em_fused_plain, z_t, x_t, lens, prev_assign, plan, Wg=Wg, T=T, d=d, l=l,
+                        assign_mode=assign_mode)
     b = _Batch(z_t, x_t, lens, T, d, l)
     o = _canonical_offsets(d, l)
     dd = d * d
@@ -1404,21 +1495,21 @@ def markov_em_fused_plain(
     return _em_plain(g, g, prev_assign, Wg, assign_mode=assign_mode, strict=False)
 
 
-# Instances per block of the batch kernel: enough blocks to fill the card
-# (about four per SM) while the per-block statistics partials stay few.
-_BATCH_BLOCKS = 528
+@functools.lru_cache(maxsize=None)
+def _batch_config(device: int, kind: int, d: int, l: int, F_pad: int, C: int, argmax: bool, stats: bool):
+    """The batch kernel's launch for a shape on a device: ``(tile, blocks
+    an SM, stages, SMs)`` (``mtm_markov_em_batch_config``)."""
+    cfg = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = _build.library().mtm_markov_em_batch_config(kind, d, l, F_pad, C, int(argmax), int(stats), cfg)
+    _build.check(rc, "markov_em_batch_config")
+    return cfg[0], cfg[3], cfg[4], cfg[5]
 
 
-def _batch_chunk(n: int) -> int:
-    """The batch kernel's instances per block: ``n`` over 528 blocks,
-    rounded up to a multiple of 64, between 256 and 1024."""
-    c = -(-n // _BATCH_BLOCKS)
-    return min(1024, max(256, 64 * -(-c // 64)))
-
-
-def _launch_batch(z_t, x_t, lens, prev, Wc, *, T, d, l, argmax, stats, what):
+def _launch_batch(z_t, x_t, lens, prev, Wc, *, T, d, l, argmax, stats, plan, what):
     """Launch ``mtm_markov_em_batch`` with the canonical weights ``Wc (C,
-    F)``; returns ``(assign, counts, switches, g (F, C), obj)``."""
+    F)`` (each row stopping at its extent under a plan); returns
+    ``(assign, counts, switches, g (F, C), obj)``."""
     kinds = {torch.float32: 0, torch.float64: 1}
     if z_t.dtype not in kinds or x_t.dtype != z_t.dtype or Wc.dtype != z_t.dtype:
         raise ValueError(
@@ -1442,24 +1533,26 @@ def _launch_batch(z_t, x_t, lens, prev, Wc, *, T, d, l, argmax, stats, what):
     F_pad = _canonical_rows(d, l)
     wc = torch.zeros((C, F_pad), dtype=Wc.dtype, device=Wc.device)
     wc[:, :F] = Wc
-    chunk = _batch_chunk(n)
-    nblocks = -(-n // chunk)
+    dev = _device_index(z_t)
+    tile, blocks, stages, sms = _batch_config(dev, kinds[z_t.dtype], d, l, F_pad, C, argmax, stats)
+    grid = min(-(-n // tile), blocks * sms)
     empty = functools.partial(torch.empty, device=z_t.device)
-    part_stats = empty((nblocks if stats else 1, F_pad, C), dtype=z_t.dtype)
-    part_counts = empty((nblocks, C), dtype=torch.int32)
-    part_sw = empty((nblocks,), dtype=torch.int32)
-    part_obj = empty((nblocks,), dtype=z_t.dtype)
+    part_stats = empty((grid if stats else 1, F_pad, C), dtype=z_t.dtype)
+    part_counts = empty((grid, C), dtype=torch.int32)
+    part_sw = empty((grid,), dtype=torch.int32)
+    part_obj = empty((grid,), dtype=z_t.dtype)
     assign = empty((n,), dtype=torch.int32)
     counts = empty((C,), dtype=torch.int32)
     switches = empty((), dtype=torch.int32)
     macc = empty((F_pad, C), dtype=z_t.dtype)
     obj = empty((), dtype=z_t.dtype)
     rc = lib.mtm_markov_em_batch(
-        _device_index(z_t),
+        dev,
         kinds[z_t.dtype],
         z_t.data_ptr(),
         x_t.data_ptr(),
         lens.data_ptr(),
+        None if plan is None else plan.extent.data_ptr(),
         prev.data_ptr(),
         wc.data_ptr(),
         assign.data_ptr(),
@@ -1477,7 +1570,9 @@ def _launch_batch(z_t, x_t, lens, prev, Wc, *, T, d, l, argmax, stats, what):
         l,
         F_pad,
         C,
-        chunk,
+        tile,
+        stages,
+        grid,
         int(argmax),
         int(stats),
         torch.cuda.current_stream(z_t.device).cuda_stream,
@@ -1499,6 +1594,7 @@ def markov_em_fused_longT(
     d: int,
     l: int,
     assign_mode: str = "argmax",
+    plan: MaskedPlan | None = None,  # the rows' order (plan_raw_batch); None: the caller's, all T
 ):
     """K6: one EM pass over the raw batch at any T, with the contract of
     ``pallas_markov.py:1148``: ``(assign (n,) int32, counts (C,) int32,
@@ -1507,20 +1603,23 @@ def markov_em_fused_longT(
     ``C`` where ``prev < 0`` (such rows count nowhere), the g-layout
     statistics and Σ max score over the valid rows.  The contract is
     suffix data: each instance's NaNs start at its length, where the
-    kernel's transition products equal the JAX kernels'.  CUDA tensors
+    kernel's transition products equal the JAX kernels'.  With a plan
+    (:class:`RawBatch`), ``z_t``, ``x_t``, ``lens``, ``prev_assign`` and
+    the assignments are in its order and each row stops at its extent;
+    without one, every row runs to T in the order given.  CUDA tensors
     launch ``csrc/markov_em_batch.cu`` on the folded canonical weights
     (float32 or float64, contiguous, int32 lens and prev, d and l up to
     8); CPU tensors take the plain version."""
-    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode, plan)
     if z_t.device.type == "cpu":
         return markov_em_fused_longT_plain(
-            z_t, x_t, lens, prev_assign, W1, W2, W3, T=T, d=d, l=l, assign_mode=assign_mode
+            z_t, x_t, lens, prev_assign, W1, W2, W3, T=T, d=d, l=l, assign_mode=assign_mode, plan=plan
         )
     if z_t.device.type != "cuda":
         raise ValueError(f"unsupported device {z_t.device}")
     out = _launch_batch(
         z_t, x_t, lens, prev_assign, canonical_weights(W1, W2, W3, d=d, l=l), T=T, d=d, l=l,
-        argmax=assign_mode == "argmax", stats=True, what="markov_em_fused_longT",
+        argmax=assign_mode == "argmax", stats=True, plan=plan, what="markov_em_fused_longT",
     )
     markov_em_fused_longT.launches += 1
     return out
@@ -1541,21 +1640,22 @@ def markov_assign_suffix(
     T: int,
     d: int,
     l: int,
+    plan: MaskedPlan | None = None,
 ):
     """K10: the E step over the raw batch, with the contract of
     ``pallas_markov.py:245``: ``(assign (n,) int32, counts (C,) int32,
     switches () int32)``, the first-max argmax of ``markov_suffix_logliks
-    + log π`` on suffix data.  CUDA tensors launch
-    ``csrc/markov_em_batch.cu`` without its statistics; CPU tensors take
-    the plain version."""
-    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l)
+    + log π`` on suffix data.  A plan as in :func:`markov_em_fused_longT`.
+    CUDA tensors launch ``csrc/markov_em_batch.cu`` without its
+    statistics; CPU tensors take the plain version."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, plan=plan)
     if z_t.device.type == "cpu":
-        return markov_assign_suffix_plain(z_t, x_t, lens, prev_assign, W1, W2, W3, T=T, d=d, l=l)
+        return markov_assign_suffix_plain(z_t, x_t, lens, prev_assign, W1, W2, W3, T=T, d=d, l=l, plan=plan)
     if z_t.device.type != "cuda":
         raise ValueError(f"unsupported device {z_t.device}")
     assign, counts, switches, _g, _obj = _launch_batch(
         z_t, x_t, lens, prev_assign, canonical_weights(W1, W2, W3, d=d, l=l), T=T, d=d, l=l,
-        argmax=True, stats=False, what="markov_assign_suffix",
+        argmax=True, stats=False, plan=plan, what="markov_assign_suffix",
     )
     markov_assign_suffix.launches += 1
     return assign, counts, switches
@@ -1575,20 +1675,23 @@ def markov_em_fused(
     d: int,
     l: int,
     assign_mode: str = "argmax",
+    plan: MaskedPlan | None = None,
 ):
     """K11: K6's contract from the canonical weights ``Wg (C, F)``
     (``pallas_markov.py:438``): ``(assign, counts, switches, g (F, C),
     obj)``; under ``assign_mode="prev"`` the statistics are taken under
-    ``prev`` itself.  CUDA tensors launch ``csrc/markov_em_batch.cu``; CPU
-    tensors take the plain version."""
-    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode)
+    ``prev`` itself.  A plan as in :func:`markov_em_fused_longT`.  CUDA
+    tensors launch ``csrc/markov_em_batch.cu``; CPU tensors take the
+    plain version."""
+    _check_batch_args(z_t, x_t, lens, prev_assign, T, d, l, assign_mode, plan)
     if z_t.device.type == "cpu":
-        return markov_em_fused_plain(z_t, x_t, lens, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode)
+        return markov_em_fused_plain(z_t, x_t, lens, prev_assign, Wg, T=T, d=d, l=l, assign_mode=assign_mode,
+                                     plan=plan)
     if z_t.device.type != "cuda":
         raise ValueError(f"unsupported device {z_t.device}")
     out = _launch_batch(
         z_t, x_t, lens, prev_assign, Wg, T=T, d=d, l=l,
-        argmax=assign_mode == "argmax", stats=True, what="markov_em_fused",
+        argmax=assign_mode == "argmax", stats=True, plan=plan, what="markov_em_fused",
     )
     markov_em_fused.launches += 1
     return out

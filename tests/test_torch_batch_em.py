@@ -214,9 +214,11 @@ def test_emstep_markov_k6_branch_matches_jax():
     for mode in ("prev", "argmax"):
         pj, aj, cj, sj = jem.emstep_markov(_jp(params), *_j(z_t, x_t, lens, prev), T=T, assign_mode=mode)
         u, phi = tem._markov_features(*_t(z, x, lens), precompute=False)
-        assert phi is None and isinstance(u, tuple)
-        pt, at, ct, st = tem.emstep_markov(_tp(params), *_t(lens, prev), phi, T=T, u=u, assign_mode=mode)
-        np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+        assert phi is None and isinstance(u, tmk.RawBatch)
+        rows = u.plan.rows.long()  # the K6 branch takes and gives rows in the plan's order
+        lens_t, prev_t = _t(lens, prev)
+        pt, at, ct, st = tem.emstep_markov(_tp(params), lens_t, prev_t[rows], phi, T=T, u=u, assign_mode=mode)
+        np.testing.assert_array_equal(torch.empty_like(at).index_copy_(0, rows, at).numpy(), np.asarray(aj))
         np.testing.assert_array_equal(ct.numpy(), np.asarray(cj))
         assert int(st) == int(sj)
         for a, b in zip(tem.mixture_params_to_numpy(pt), pj):
@@ -243,6 +245,144 @@ def test_train_em_markov_precompute_off_long_T_matches_jax(reg_mode):
     pp, ap, ip, sp = tem.train_em_markov(_tp(params), *_t(assign0, z, x, lens), **{**kw, "precompute": True})
     assert (ip, sp) == (it, st)
     np.testing.assert_array_equal(ap.numpy(), at.numpy())
+
+
+# ----------------------------------------------------------------------
+# the raw-batch plan: each row's extent, the rows by extent
+# ----------------------------------------------------------------------
+
+
+def _plan_edges(seed, T, n, d, l, big=None):
+    """Suffix data with the plan's edges: row 3 all NaN (extent 0), row 5
+    NaN but for one +Inf (extent T: a value that is not NaN counts), row 9
+    with a -Inf at t = 0, rows 7 and 11 with finite values for two steps
+    past their length; with ``big``, rows 13 and 17 scaled by it (their
+    products overflow)."""
+    z, x, lens, _labels = _suffix(seed, T, n, d, l)
+    z[:, 3], x[:, 3] = np.nan, np.nan
+    z[:, 5], x[:, 5] = np.nan, np.nan
+    z[T - 1, 5, 0] = np.inf
+    x[0, 9, 0] = -np.inf
+    for i in (7, 11):
+        lens[i] = min(lens[i], T - 2)
+        z[lens[i] : lens[i] + 2, i] = 0.5
+        x[lens[i] : lens[i] + 2, i] = -0.25
+    if big is not None:
+        z[:, [13, 17]] *= big
+        x[:, [13, 17]] *= big
+    return z, x, lens
+
+
+def _extent_reference(z, x):
+    """1 + each row's last step with a z or x entry that is not NaN (0:
+    none), in numpy."""
+    seen = ~np.isnan(z).all(-1) | ~np.isnan(x).all(-1)  # (T, n)
+    return np.where(seen.any(0), z.shape[0] - np.argmax(seen[::-1], axis=0), 0).astype(np.int32)
+
+
+@pytest.mark.parametrize("T,d,l", [(6, 3, 2), (70, 2, 1)])
+def test_raw_batch_plan_matches_numpy(T, d, l):
+    """The raw-batch plan: each row's extent and the rows in a stable order
+    by extent, longest first, against numpy; ``plan_raw_batch`` permutes
+    the transposed batch and the lengths into that order."""
+    z, x, lens = _plan_edges(86, T, 60, d, l)
+    z_t, x_t = _transposed(z, x)
+    ext = _extent_reference(z, x)
+    order = np.argsort(-ext, kind="stable")
+    assert ext[3] == 0 and ext[5] == T and ext[9] >= 1
+    plan = tmk.raw_batch_plan(*_t(z_t, x_t), T=T, d=d, l=l)
+    np.testing.assert_array_equal(plan.rows.numpy(), order)
+    np.testing.assert_array_equal(plan.extent.numpy(), ext[order])
+    assert plan.rows.dtype == plan.extent.dtype == torch.int32
+    raw = tmk.plan_raw_batch(*_t(z, x, lens))
+    np.testing.assert_array_equal(raw.plan.rows.numpy(), order)
+    np.testing.assert_array_equal(raw.z_t.numpy(), z_t[:, order])
+    np.testing.assert_array_equal(raw.x_t.numpy(), x_t[:, order])
+    np.testing.assert_array_equal(raw.lens.numpy(), lens[order])
+
+
+def _bits(a: torch.Tensor) -> torch.Tensor:
+    return a.view(torch.int32 if a.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("kernel,assign_mode", [("K6", "argmax"), ("K6", "prev"), ("K10", "argmax"),
+                                                ("K11", "argmax"), ("K11", "prev")])
+def test_plain_versions_under_a_plan_equal_unplanned(kernel, assign_mode, dtype):
+    """The plain versions on the planned batch (rows permuted, the
+    assignments scattered back) equal the plain versions without a plan
+    bit for bit: their sums run over the caller's order either way."""
+    T, d, l = 12, 3, 2
+    z, x, lens = _plan_edges(87, T, 150, d, l)
+    z_t, x_t = _transposed(z, x)
+    c = _kernel_case(88, T, d, l, n=150)
+    zt, xt, ld, prev = _t(z_t, x_t, lens, c["prev"])
+    zt, xt = zt.to(dtype), xt.to(dtype)
+    W = [w.to(dtype) for w in _t(*c["W"])]
+    Wg = _t(c["Wg"])[0].to(dtype)
+    plan = tmk.raw_batch_plan(zt, xt, T=T, d=d, l=l)
+    rows = plan.rows.long()
+    kw = dict(T=T, d=d, l=l)
+    if kernel != "K10":
+        kw["assign_mode"] = assign_mode
+
+    def run(zt, xt, ld, prev, **more):
+        if kernel == "K10":
+            return tmk.markov_assign_suffix_plain(zt, xt, ld, prev, *W, **kw, **more)
+        if kernel == "K6":
+            return tmk.markov_em_fused_longT_plain(zt, xt, ld, prev, *W, **kw, **more)
+        return tmk.markov_em_fused_plain(zt, xt, ld, prev, Wg, **kw, **more)
+
+    want = run(zt, xt, ld, prev)
+    got = run(zt[:, rows], xt[:, rows], ld[rows], prev[rows], plan=plan)
+    torch.testing.assert_close(torch.empty_like(got[0]).index_copy_(0, rows, got[0]), want[0], rtol=0, atol=0)
+    for g, w in zip(got[1:], want[1:]):
+        assert torch.equal(_bits(g) if g.is_floating_point() else g, _bits(w) if w.is_floating_point() else w)
+
+
+@pytest.mark.parametrize("dtype,big", [(torch.float32, 1e20), (torch.float64, 1e160)])
+def test_row_build_stopping_at_extent_is_bit_equal(dtype, big):
+    """The canonical Φ built with each row stopping at its extent (the
+    raw-batch kernels' build) equals the build over all T bit for bit:
+    extent-0 rows, ±Inf entries, finite values past a row's length, and
+    rows whose products overflow to ±Inf (and NaN under a zero mask)."""
+    T, d, l = 70, 2, 1
+    z, x, lens = _plan_edges(89, T, 120, d, l, big=big)
+    zt, xt = (a.to(dtype) for a in _t(*_transposed(z, x)))
+    ld = _t(lens)[0]
+    plan = tmk.raw_batch_plan(zt, xt, T=T, d=d, l=l)
+    ext = torch.empty_like(plan.extent).index_copy_(0, plan.rows.long(), plan.extent)
+    full = tmk.markov_materialize_features_longT_plain(zt, xt, ld, T=T, d=d, l=l)
+    stopped = tmk.markov_materialize_features_longT_plain(zt, xt, ld, T=T, d=d, l=l, extent=ext)
+    assert not bool(torch.isfinite(full).all())  # the overflow is there
+    assert torch.equal(_bits(stopped), _bits(full))
+
+
+def test_train_em_markov_long_T_plan_matches_jax(monkeypatch):
+    """The long-T fit without Φ keeps its batch and assignment in the
+    plan's order (a permutation that is not the identity here) and lands
+    where the JAX package's does, the assignment in the caller's order."""
+    T, d, l = 70, 2, 1
+    z, x, lens, labels = _suffix(90, T, 240, d, l)
+    rng = np.random.default_rng(91)
+    assign0 = np.where(rng.uniform(size=labels.size) < 0.2, 1 - labels, labels).astype(np.int32)
+    params = _params(92, 2, d, l)
+    kw = dict(n_steps=20, precompute=False)
+    pj, aj, ij, sj = jem.train_em_markov(_jp(params), *_j(assign0, z, x, lens), **kw)
+    plans, real = [], tmk.markov_em_fused_longT
+
+    def spy(*a, **k):
+        plans.append(k.get("plan"))
+        return real(*a, **k)
+
+    monkeypatch.setattr(tmk, "markov_em_fused_longT", spy)
+    pt, at, it, st = tem.train_em_markov(_tp(params), *_t(assign0, z, x, lens), **kw)
+    assert len(plans) == it + 1 and all(p is not None for p in plans)
+    assert not torch.equal(plans[0].rows, torch.arange(labels.size, dtype=torch.int32))
+    assert (it, st) == (int(ij), int(sj)) and it > 1
+    np.testing.assert_array_equal(at.numpy(), np.asarray(aj))
+    for a, b in zip(tem.mixture_params_to_numpy(pt), pj):
+        np.testing.assert_allclose(a, np.asarray(b), **TOL)
 
 
 @pytest.mark.parametrize("T,d,l", [(6, 3, 2), (70, 2, 1)])

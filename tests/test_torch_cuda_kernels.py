@@ -1566,6 +1566,86 @@ def test_raw_batch_kernels_match_plain(cuda, kernel, assign_mode, T, d, l, dtype
     assert float((g - want[3]).abs().max()) <= rel * float(scale)
 
 
+def _raw_batch_edges(inputs, T, d, l):
+    """``_raw_batch_inputs``'s batch with the plan's edges: every 53rd row
+    all NaN (extent 0), every 31st with finite values for three steps past
+    its length, one +Inf and one -Inf entry."""
+    z_t, x_t, lens = (a.clone() for a in inputs[:3])
+    n = lens.shape[0]
+    z3, x3 = z_t.view(T, d, n), x_t.view(T, l, n)
+    t = torch.arange(T, device=lens.device)[:, None]
+    past = (t >= lens[None, :]) & (t < lens[None, :] + 3)
+    past &= (torch.arange(n, device=lens.device) % 31 == 0)[None, :]
+    z3.copy_(torch.where(past[:, None, :], 0.5, z3))
+    x3.copy_(torch.where(past[:, None, :], -0.25, x3))
+    z_t[:, ::53], x_t[:, ::53] = torch.nan, torch.nan
+    z_t[0, 7], x_t[1, 11] = torch.inf, -torch.inf
+    return (z_t, x_t, lens, *inputs[3:])
+
+
+@pytest.mark.parametrize("kernel,assign_mode", [("K6", "argmax"), ("K6", "prev"), ("K10", "argmax"),
+                                                ("K11", "argmax"), ("K11", "prev")])
+@pytest.mark.parametrize("T,d,l", [(70, 5, 3), (12, 4, 3)])
+@pytest.mark.parametrize("dtype,rel", [(torch.float32, 1e-4), (torch.float64, 1e-10)])
+def test_raw_batch_kernels_planned_match_unplanned(cuda, kernel, assign_mode, T, d, l, dtype, rel):
+    """K6, K10 and K11 on the planned batch (rows by extent, each stopping
+    at its extent; n = 4099, neither a multiple of the tile nor of 4;
+    extent-0 rows, finite values past a row's length, ±Inf): the
+    assignments scattered back equal the unplanned call's bit for bit (the
+    skip is exact, so every score is), counts and switches too, and the
+    objective and statistics within ``rel`` of the unplanned call's
+    (another summation order); two planned calls bit-identical.  The
+    plain version under the plan is the plain version without one, bit
+    for bit."""
+    n = 4099
+    inputs = _raw_batch_edges(_raw_batch_inputs(cuda, dtype, T, d, l, n, 16, seed=23), T, d, l)
+    z_t, x_t, lens, prev, W, Wg = inputs
+    plan = mk.raw_batch_plan(z_t, x_t, T=T, d=d, l=l)
+    assert int(plan.extent.min()) == 0 and bool((plan.extent[:-1] >= plan.extent[1:]).all())
+    rows = plan.rows.long()
+    planned = (z_t.index_select(1, plan.rows), x_t.index_select(1, plan.rows), lens[rows], prev[rows], W, Wg)
+    kw = dict(T=T, d=d, l=l, plan=plan)
+    if kernel == "K10":
+        call = lambda fn=mk.markov_assign_suffix: fn(*planned[:4], *W, **kw)  # noqa: E731
+    elif kernel == "K6":
+        call = lambda fn=mk.markov_em_fused_longT: fn(*planned[:4], *W, assign_mode=assign_mode, **kw)  # noqa: E731
+    else:
+        call = lambda fn=mk.markov_em_fused: fn(*planned[:4], Wg, assign_mode=assign_mode, **kw)  # noqa: E731
+    out = call()
+    assert all(torch.equal(p, q) for p, q in zip(out, call()))
+    ref = _raw_batch_call(kernel, inputs, T, d, l, assign_mode)
+    assert torch.equal(torch.empty_like(out[0]).index_copy_(0, rows, out[0]), ref[0])
+    assert torch.equal(out[1], ref[1]) and torch.equal(out[2], ref[2])
+    plain = call({"K6": mk.markov_em_fused_longT_plain, "K10": mk.markov_assign_suffix_plain,
+                  "K11": mk.markov_em_fused_plain}[kernel])
+    plain_ref = _raw_batch_call(kernel, inputs, T, d, l, assign_mode, plain=True)
+    assert torch.equal(torch.empty_like(plain[0]).index_copy_(0, rows, plain[0]), plain_ref[0])
+    assert all(torch.equal(p, q) for p, q in zip(plain[1:], plain_ref[1:]))
+    if kernel != "K10":
+        scale = ref[3].abs().amax().clamp_min(1.0)
+        assert float((out[3] - ref[3]).abs().max()) <= rel * float(scale)
+        assert abs(float(out[4]) - float(ref[4])) <= rel * max(abs(float(ref[4])), 1.0)
+
+
+def test_k6_planned_statistics_equal_k5_then_k1(cuda):
+    """K6 on a planned batch with extent-0 rows and values past a row's
+    length equals K5 then K1 on the same (permuted) batch: assignments,
+    counts and switches exactly, statistics and objective to 1e-12
+    relative (float64)."""
+    T, d, l, n, C = 70, 5, 3, 8197, 16
+    z_t, x_t, lens, prev, W, Wg = _raw_batch_edges(
+        _raw_batch_inputs(cuda, torch.float64, T, d, l, n, C, seed=24), T, d, l)
+    plan = mk.raw_batch_plan(z_t, x_t, T=T, d=d, l=l)
+    z_t, x_t, lens, prev = (a.index_select(-1, plan.rows).contiguous() for a in (z_t, x_t, lens, prev))
+    phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
+    k1 = mk.markov_em_from_features(phi, prev, Wg, T=T, d=d, l=l)
+    k6 = mk.markov_em_fused_longT(z_t, x_t, lens, prev, *W, T=T, d=d, l=l, plan=plan)
+    for p, q in zip(k1[:3], k6[:3]):
+        assert torch.equal(p, q)
+    assert float((k1[3] - k6[3]).abs().max()) <= 1e-12 * float(k1[3].abs().amax())
+    assert abs(float(k1[4]) - float(k6[4])) <= 1e-12 * abs(float(k1[4]))
+
+
 def test_raw_batch_kernels_nan_cluster(cuda):
     """A cluster with NaN weights takes every valid row (the first NaN
     score wins, as ``jnp.argmax``), and the objective is NaN."""
