@@ -4,11 +4,13 @@
 //
 // The ACC-row build is the feature definition of the JAX package's
 // ops/pallas_markov.py:_packed_acc_build, one row at a time: K2
-// (markov_features.cu) writes the referenced rows out as Φ, and K4a and
-// float64 K4b (markov_em_multi.cuh) build the same rows into shared memory
+// (markov_features.cu) writes the referenced rows out as Φ, and float64
+// K4a and K4b (markov_em_multi.cuh) build the same rows into shared memory
 // and score them there, so Φ never reaches device memory; float32 K4b
-// (markov_em_packed_mma.cu) builds them from a u tile in shared memory
-// with the same terms in the same order (acc_row_tile).
+// (markov_em_packed_mma.cu) and float32 K4a (markov_em_packed_one.cu)
+// build them from a u tile in shared memory with the same terms in the
+// same order (markov_packed_tile.cuh:acc_row_tile; float32 K4a's bench
+// shape a step at a time from registers).
 
 #pragma once
 
@@ -75,6 +77,17 @@ __device__ V block_sum(V v, V* red) {
     for (int w = 0; w < (int)(blockDim.x >> 5); ++w) tot += red[w];
   __syncthreads();
   return tot;
+}
+
+// The sum of part[b · stride] over the blocks b < nblocks in a fixed
+// order, valid in lane 0: lane k sums blocks k, k + 32, ... in order, then
+// a fixed shuffle tree.  One warp an output of a partials' reduce.
+template <typename V>
+__device__ __forceinline__ V warp_total(const V* __restrict__ part, int64_t stride, int64_t nblocks) {
+  V a = V(0);
+  for (int64_t b = threadIdx.x & 31; b < nblocks; b += 32) a += part[b * stride];
+  for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
+  return a;
 }
 
 // Adds one tile of nj instances to float statistics in a fixed order, so

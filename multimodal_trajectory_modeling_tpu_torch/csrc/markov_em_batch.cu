@@ -90,6 +90,7 @@ using mtm::ordered_add;
 using mtm::RowsX;
 using mtm::RowsZN;
 using mtm::RowsZZ;
+using mtm::warp_total;
 
 constexpr int kParts = 3;
 constexpr int kTileMax = 64;
@@ -448,17 +449,8 @@ __global__ void __launch_bounds__(kParts* kTileMax, Bounds<T, FIXED>::kMinBlocks
   }
 }
 
-// Adds the per-block partials in a fixed order: one warp per output, lane
-// k summing blocks k, k + 32, ... in order, then a fixed shuffle tree (FC
-// is 0 without statistics).
-template <typename V>
-__device__ __forceinline__ V warp_total(const V* __restrict__ part, int64_t stride, int64_t nblocks) {
-  V a = V(0);
-  for (int64_t b = threadIdx.x & 31; b < nblocks; b += 32) a += part[b * stride];
-  for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
-  return a;
-}
-
+// Adds the per-block partials in a fixed order: one warp per output
+// (markov_common.cuh:warp_total; FC is 0 without statistics).
 template <typename T>
 __global__ void em_batch_reduce(const T* __restrict__ part_stats,
                                 const int* __restrict__ part_counts,

@@ -88,6 +88,7 @@
 #include <stdint.h>
 
 #include "markov_em_multi.cuh"
+#include "markov_packed_tile.cuh"
 
 namespace {
 
@@ -98,9 +99,8 @@ constexpr int kPW = kPT / 32;     // warps of a block
 constexpr int kMaxPRG = 8;        // restarts of a group
 constexpr int kObjThreads = 128;  // K4a's block: the objective's order
 constexpr int kMaxCS = 8;         // blocks of a cluster
-constexpr int kNone = 32;         // the sort's key of an instance in no cluster
-constexpr int kSeg = 33;          // a restart's clusters and kNone
 constexpr int kRowsLane = 2;      // Φ rows a lane sums at once (32 apart)
+using mtm::kSeg;
 
 // instances an item scores: 2 with C ≤ 16, else 1, so that the scores fit
 // the 128 registers a thread of a 512-thread block has
@@ -130,58 +130,6 @@ __device__ __forceinline__ void cp_async_commit() {
 }
 __device__ __forceinline__ void cp_async_wait_all() {
   asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-}
-
-// markov_common.cuh:acc_row on a tile in shared memory (element (row, j)
-// at ui[row * stride]): the same terms, added in the same order by the
-// same expressions, so the same value bit for bit; each loop's trip count
-// is computed first, so that no load waits on a condition and the loads
-// of later steps are sent ahead of the sum.
-__device__ __forceinline__ float acc_row_tile(int kind, int k, int r, const float* ui, int stride,
-                                              int len, int steps, int s) {
-  const int Ts = steps * s;
-  // the masked rows' steps: t + 1 < len && t < steps
-  const int tm = len - 1 < steps ? (len - 1 > 0 ? len - 1 : 0) : steps;
-  float acc = 0.f;
-  switch (kind) {
-    case mtm::ROW_A: {
-      // a + k < Ts with a = t s + r: t < ceil((Ts - k - r) / s)
-      const int room = Ts - k - r;
-      const int tn = room > 0 ? (room + s - 1) / s : 0;
-      for (int t = 0; t < tn; ++t) {
-        const int a = t * s + r;
-        acc += ui[a * stride] * ui[(a + k) * stride];
-      }
-      break;
-    }
-    case mtm::ROW_B:
-      for (int t = 0; t < tm; ++t) {
-        const int a = t * s + r;
-        acc += ui[a * stride] * ui[(a + k) * stride];
-      }
-      break;
-    case mtm::ROW_F0:
-      acc = ui[r * stride] * ui[(r + k) * stride];
-      break;
-    case mtm::ROW_AID:
-      for (int t = 0; t < steps; ++t) acc += ui[(t * s + r) * stride];
-      break;
-    case mtm::ROW_AVM:
-      for (int t = 0; t < tm; ++t) acc += ui[(t * s + r) * stride];
-      break;
-    case mtm::ROW_U0:
-      acc = ui[r * stride];
-      break;
-    case mtm::ROW_LEN:
-      acc = float(len);
-      break;
-    case mtm::ROW_ONE:
-      acc = 1.f;
-      break;
-    default:
-      break;
-  }
-  return acc;
 }
 
 // K1's FMA chain over the Fcp rows of the Φ tile for the IPT instances
@@ -322,7 +270,7 @@ __global__ void __launch_bounds__(kPT, 1)
       float v = 0.f;
       if (live && f < Fc) {
         const int d = s_desc[f];
-        v = acc_row_tile(d & 0xF, d >> 4 & 0x3FF, d >> 14, s_u + j, NT, len, steps, s);
+        v = mtm::acc_row_tile(d & 0xF, d >> 4 & 0x3FF, d >> 14, s_u + j, NT, len, steps, s);
       }
       const int off = f * pitch + j;
 #pragma unroll
@@ -389,45 +337,7 @@ __global__ void __launch_bounds__(kPT, 1)
   // lanes below it with its cluster.
   auto sort_tile = [&]() {
     if (warp >= rg) return;
-    const unsigned below_mask = (1u << lane) - 1u;
-    int seen = 0;  // lane c: cluster c's instances in the chunks so far
-    int key[kObjThreads / 32], pos[kObjThreads / 32];
-#pragma unroll
-    for (int q = 0; q < kObjThreads / 32; ++q) {
-      if (q < NT / 32) {  // uniform
-        const int c0 = s_na[warp * NT + q * 32 + lane];
-        key[q] = c0 >= 0 ? c0 : kNone;
-        unsigned m[CB];  // every ballot first, so that they run back to back
-#pragma unroll
-        for (int c = 0; c < CB; ++c) m[c] = __ballot_sync(0xffffffffu, key[q] == c);
-        int below = 0, here = 0;
-#pragma unroll
-        for (int c = 0; c < CB; ++c) {
-          if (key[q] == c) below = __popc(m[c] & below_mask);
-          if (lane == c) here = __popc(m[c]);
-        }
-        pos[q] = __shfl_sync(0xffffffffu, seen, key[q] & 31) + below;
-        seen += here;
-      }
-    }
-    int incl = seen;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const int y = __shfl_up_sync(0xffffffffu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    const int first = incl - seen;  // lane c: cluster c's first position
-    int* cnt = s_seg + warp * 2 * kSeg;
-    cnt[lane] = seen;
-    cnt[kSeg + lane] = first;
-    counts += seen;
-#pragma unroll
-    for (int q = 0; q < kObjThreads / 32; ++q) {
-      if (q < NT / 32) {
-        const int at = __shfl_sync(0xffffffffu, first, key[q] & 31);
-        if (key[q] != kNone) s_perm[warp * NT + at + pos[q]] = key[q] << 8 | (q * 32 + lane);
-      }
-    }
+    counts += mtm::sort_tile<CB>(s_na + warp * NT, s_perm + warp * NT, s_seg + warp * 2 * kSeg, NT);
   };
 
   // The tile's statistics: a warp takes restart rr and rows f = lane +
@@ -440,39 +350,8 @@ __global__ void __launch_bounds__(kPT, 1)
     const int nb = (Fcp + 32 * kRowsLane - 1) / (32 * kRowsLane);
     for (int e = warp; e < rg * nb; e += kPW) {
       const int rr = e / nb, p0 = (e % nb) * kRowsLane;
-      const int* perm = s_perm + rr * NT;
-      const int* cnt = s_seg + rr * 2 * kSeg;
-      const int my_n = cnt[lane], my_k0 = cnt[kSeg + lane];  // lane c < C: cluster c's
-      const float* row[kRowsLane];
-#pragma unroll
-      for (int b = 0; b < kRowsLane; ++b) {
-        const int f = (p0 + b) * 32 + lane;
-        row[b] = s_phi + (f < Fcp ? f : 0) * pitch;
-      }
-      float run[CB][kRowsLane];
-#pragma unroll
-      for (int c = 0; c < CB; ++c) {
-#pragma unroll
-        for (int b = 0; b < kRowsLane; ++b) run[c][b] = 0.f;
-        const int k0 = __shfl_sync(0xffffffffu, my_k0, c);
-        const int k1 = c < C ? k0 + __shfl_sync(0xffffffffu, my_n, c) : k0;
-#pragma unroll 8
-        for (int k = k0; k < k1; ++k) {
-          const int j = perm[k] & 0xFF;
-#pragma unroll
-          for (int b = 0; b < kRowsLane; ++b) run[c][b] += row[b][j];
-        }
-      }
-#pragma unroll
-      for (int b = 0; b < kRowsLane; ++b) {
-        const int f = (p0 + b) * 32 + lane;
-        if (f < Fcp) {
-          float* st = s_st + ((size_t)rr * Fcp + f) * SB;
-#pragma unroll
-          for (int c = 0; c < CB; ++c)
-            if (c < C) st[c] += run[c][b];
-        }
-      }
+      mtm::seg_sum_rows<CB, kRowsLane>(s_st + (size_t)rr * Fcp * SB, SB, s_phi, pitch, Fcp, s_perm + rr * NT,
+                                       s_seg + rr * 2 * kSeg, p0 * 32, 0, C);
     }
   };
 

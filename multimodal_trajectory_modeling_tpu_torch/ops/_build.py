@@ -56,9 +56,11 @@ _SIGNATURES = {
     ],
     "mtm_markov_em_packed": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
-        _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+        _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "mtm_markov_em_packed_mma_smem": [_I, _I, _I, _I, _I, _I],
+    "mtm_markov_em_packed_one_config": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
+    "mtm_markov_em_packed_one_smem": [_I, _I, _I, _I, _I, _I],
     "mtm_estep_assign_block": [_I, _I, _I],
     "mtm_estep_tc_plan": [_I, _I, _P],
     "mtm_estep_assign": [

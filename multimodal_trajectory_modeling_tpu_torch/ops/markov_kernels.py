@@ -16,11 +16,12 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
   ``markov_em_fused_packed_multi`` (:898) → ``csrc/markov_em_multi.cu``
   and ``csrc/markov_em_packed.cu``, one kernel body that reads Φ from
   device memory (K3 on wide Φ) or builds each instance's Φ column in
-  shared memory with K2's row build (``csrc/markov_common.cuh``, K4a and
-  float64 K4b); int16 Φ takes K3's tensor-core body
-  (``csrc/markov_em_multi_mma.cu``), float32 K4b its own, which stages the
-  packed batch in shared memory and builds Φ tiles there
-  (``csrc/markov_em_packed_mma.cu``, planned by :func:`packed_mma_plan`);
+  shared memory with K2's row build (``csrc/markov_common.cuh``, float64
+  K4a and K4b); int16 Φ takes K3's tensor-core body
+  (``csrc/markov_em_multi_mma.cu``), float32 K4b and float32 K4a their own,
+  which stage the packed batch in shared memory and build Φ tiles there
+  (``csrc/markov_em_packed_mma.cu``, planned by :func:`packed_mma_plan`;
+  ``csrc/markov_em_packed_one.cu``, planned by :func:`packed_one_plan`);
 - K6 ``markov_em_fused_longT`` (:1148), K10 ``markov_assign_suffix``
   (:245) and K11 ``markov_em_fused`` (:438) → ``csrc/markov_em_batch.cu``,
   one kernel body that builds each instance's canonical Φ column in
@@ -72,6 +73,7 @@ from multimodal_trajectory_modeling_tpu_torch.ops.markov import canonical_weight
 from multimodal_trajectory_modeling_tpu_torch.ops.row_plan import MaskedPlan, masked_plan
 
 __all__ = [
+    "PackedOnePlan",
     "PackedPlan",
     "PhiQuant",
     "RawBatch",
@@ -103,6 +105,8 @@ __all__ = [
     "markov_packed_spec",
     "pack_markov_u",
     "packed_mma_plan",
+    "packed_one_plan",
+    "packed_one_smem",
     "plan_raw_batch",
     "raw_batch_plan",
     "packed_mma_smem",
@@ -1133,10 +1137,102 @@ def packed_mma_plan(Fcp: int, Ts: int, C: int, R: int, *, argmax: bool = True):
     return None
 
 
+# Float32 K4a's body (csrc/markov_em_packed_one.cu): threads an instance
+# (the kernel's kQ53 for the bench shape's compile-time rows)
+_ONE_Q = 4
+_SM_SMEM = 233472  # an SM's shared memory for blocks (228 KB)
+
+
+class PackedOnePlan(NamedTuple):
+    """A block of float32 K4a's body: ``nt`` instances a tile (128, 64 or
+    32), ``q`` threads an instance building its Φ rows, a ring of ``ring``
+    staged u tiles (2, or 1 where two do not fit), ``smem`` bytes of shared memory, ``threads``
+    (nt · q) and ``blocks_per_sm`` that the shared memory allows."""
+
+    nt: int
+    q: int
+    ring: int
+    smem: int
+    threads: int
+    blocks_per_sm: int
+
+
+class PackedOneLaunch(NamedTuple):
+    """Float32 K4a's launch on a device: its plan, then what the runtime
+    gives it: blocks an SM (registers and shared memory), SMs, registers
+    and local (spill) bytes a thread."""
+
+    nt: int
+    q: int
+    ring: int
+    smem: int
+    threads: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+
+def packed_one_smem(Fcp: int, Ts: int, C: int, nt: int, ring: int, *, argmax: bool) -> int:
+    """Shared memory of a block of float32 K4a's body (``one_smem`` in
+    the CUDA source): the u ring ``(ring, Ts, nt)``, the weights ``(Fcp,
+    CB)`` under argmax, the statistics ``(Fcp, CB + 1)``, the Φ tile
+    ``(Fcp, nt + 1)``, then the ints: lengths ``(ring, nt)``, assignments
+    and the sorted tile ``(nt,)`` each, the sort's counts and first
+    positions ``(2, 33)``, the row table ``(Fcp,)`` and 32 of a block sum's
+    scratch.  CB is C rounded up to 8, 16 or 32 (32 under
+    ``assign_mode="prev"``)."""
+    cb = 32 if not argmax or C > 16 else 16 if C > 8 else 8
+    return 4 * (ring * Ts * nt + (Fcp * cb if argmax else 0) + Fcp * (cb + 1) + Fcp * (nt + 1) + ring * nt
+                + 2 * nt + 66 + Fcp + 32)
+
+
+def packed_one_plan(T: int, d: int, l: int, C: int, *, argmax: bool = True):
+    """The block of float32 K4a's body for the packed batch of (T, d, l)
+    and C clusters, as a :class:`PackedOnePlan`: four threads an instance,
+    then the tile that puts the most warps on an SM (at most 16: a thread
+    holds up to 128 registers) with a ring of two tiles if one fits, ties
+    to the wider tile.  None where no block fits 232 448 bytes."""
+    Fcp = markov_compact_spec(T, d, l)[0]
+    Ts = T * 8 * ((d + l + 7) // 8)
+    q = _ONE_Q
+    best = key = None
+    for t in (128, 64, 32):
+        for r in (2, 1):
+            smem = packed_one_smem(Fcp, Ts, C, t, r, argmax=argmax)
+            if smem > _MAX_SMEM:
+                continue
+            blocks = min(_SM_SMEM // (smem + 1024), 2048 // (t * q), 32)
+            k = (r > 1, min(blocks * t * q // 32, 16), t)
+            if key is None or k > key:
+                best, key = PackedOnePlan(t, q, r, smem, t * q, blocks), k
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _packed_one_config(device: int, T: int, d: int, l: int, C: int, argmax: bool):
+    """The :class:`PackedOneLaunch` of float32 K4a at this shape on
+    ``device`` (the plan, then the runtime's occupancy), or None where no
+    plan exists."""
+    plan = packed_one_plan(T, d, l, C, argmax=argmax)
+    if plan is None:
+        return None
+    Fcp, uniq, _pos = markov_compact_spec(T, d, l)
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = _build.library().mtm_markov_em_packed_one_config(
+            d, l, int(uniq.shape[0]), Fcp, T * 8 * ((d + l + 7) // 8), C, int(argmax), plan.nt, plan.q, plan.ring,
+            out)
+    _build.check(rc, "markov_em_fused_packed (its launch)")
+    return PackedOneLaunch(plan.nt, plan.q, plan.ring, *out)
+
+
 def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
     """Launch ``mtm_markov_em_packed`` (K4a with ``strict=False`` and
     R = 1, K4b with ``strict=True``; float32 K4b on the plan of
-    :func:`packed_mma_plan`); returns the R-restart outputs."""
+    :func:`packed_mma_plan`, float32 K4a on that of :func:`packed_one_plan`
+    with a persistent grid and its own partial buffers); returns the
+    R-restart outputs."""
     if u.dtype not in _W_KINDS or wc.dtype != u.dtype:
         raise ValueError(
             f"u and the weights must share float32 or float64, got {u.dtype}, "
@@ -1154,12 +1250,34 @@ def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
     _check_clusters(lib, C)
     Fc = int(markov_compact_spec(T, d, l)[1].shape[0])
     desc = _row_desc(T, d, l, u.device)
-    parts, outs = _multi_buffers(
-        R, n, Fcp, C, quant=False, wdtype=wc.dtype, device=u.device
-    )
-    plan = None
-    if strict and u.dtype == torch.float32:
-        plan = packed_mma_plan(Fcp, u.shape[0], C, R, argmax=argmax)
+    one = None
+    if not strict and u.dtype == torch.float32:
+        one = _packed_one_config(_device_index(u), T, d, l, C, argmax)
+    if one is not None:
+        grid = min(-(-n // one.nt), one.blocks_per_sm * one.sms)
+        empty = functools.partial(torch.empty, device=u.device)
+        parts = (
+            empty((grid, Fcp, C), dtype=wc.dtype),
+            empty((grid, C), dtype=torch.int32),
+            empty((grid,), dtype=torch.int32),
+            empty((n + -(-n // _EM_CHUNK),), dtype=wc.dtype),  # each instance's objective entry, each sub's
+        )
+        outs = (
+            empty((R, n), dtype=torch.int32),
+            empty((R, C), dtype=torch.int32),
+            empty((R,), dtype=torch.int32),
+            empty((R, Fcp, C), dtype=wc.dtype),
+            empty((R,), dtype=wc.dtype),
+        )
+        plan_args = (one.nt, one.q, one.ring, d, l, grid)
+    else:
+        parts, outs = _multi_buffers(
+            R, n, Fcp, C, quant=False, wdtype=wc.dtype, device=u.device
+        )
+        plan = None
+        if strict and u.dtype == torch.float32:
+            plan = packed_mma_plan(Fcp, u.shape[0], C, R, argmax=argmax)
+        plan_args = (*(plan[:3] if plan is not None else (0, 0, 0)), d, l, 0)
     rc = lib.mtm_markov_em_packed(
         _device_index(u),
         _W_KINDS[u.dtype],
@@ -1183,7 +1301,7 @@ def _launch_packed(u, lens, prev, wc, force, *, T, d, l, argmax, strict):
         _EM_CHUNK,
         int(argmax),
         int(strict),
-        *(plan[:3] if plan is not None else (0, 0, 0)),
+        *plan_args,
         torch.cuda.current_stream(u.device).cuda_stream,
     )
     _build.check(rc, "markov_em_fused_packed" + ("_multi" if strict else ""))
@@ -1204,8 +1322,11 @@ def markov_em_fused_packed(
     """K4a: one EM iteration that rebuilds Φ from the packed batch, with
     the contract of ``pallas_markov.py:727``: ``(assign (n,), counts (C,),
     switches (), g (F, C), obj ())``; the first-maximum argmax of K1.
-    CUDA tensors launch ``csrc/markov_em_packed.cu`` at R = 1; CPU tensors
-    take the plain version."""
+    CUDA tensors launch ``csrc/markov_em_packed.cu`` at R = 1: float32 its
+    staged body (``csrc/markov_em_packed_one.cu``; its assignments, counts
+    and switches K1's on K2's float32 Φ bit for bit, its objective float32
+    K4b's slot objective bit for bit), float64 the header's body; CPU
+    tensors take the plain version."""
     _check_features_args(u, lens, T, d, l)
     _check_mode(assign_mode)
     if prev_assign.shape != lens.shape:

@@ -23,7 +23,12 @@ where the scores are finite (K1's FMA chain, K4a's objective order); its
 statistics (float32 sums in instance order within each block) agree to
 2e-5 of the same sums over |u| of the plain version in float64, and where
 its own Φ overflows, the same NaN, +Inf or -Inf; its assignments flip
-only at float64 near ties (1e-4·(1 + |score|)), at most 1e-4 of the rows.  K8 (the
+only at float64 near ties (1e-4·(1 + |score|)), at most 1e-4 of the rows.
+Float32 K4a runs its own staged body: its assignments, counts and
+switches equal K1's on K2's float32 Φ bit for bit (the same Φ entries, K1's
+FMA chain), its objective float32 K4b's at R = 1 bit for bit (the header's
+summation order) and K1's to 2e-6 of Σ|best score| (K1 sums in its own
+order), its statistics within 2e-5 of the same sums over |u|.  K8 (the
 sorted E step) may flip an assignment only where the float64 top-2 score
 gap is below 1e-4·(1 + |score|) in float32 (1e-9 in float64); its counts
 and switches are exact for its own assignments.  K9 (the sorted M-step
@@ -554,6 +559,102 @@ def test_em_packed_multi_f32_plan_matches_the_kernel(cuda):
             assert plan.smem == lib.mtm_markov_em_packed_mma_smem(Fcp, Ts, C, plan.rg, plan.nt,
                                                                   int(argmax))
             assert plan.smem <= torch.cuda.get_device_properties(cuda).shared_memory_per_block_optin
+
+
+# Float32 K4a's staged body (csrc/markov_em_packed_one.cu) at its edges:
+# C from one 8-wide score block to four (1, 8, 16, 17, 32), n around a
+# 128-instance tile, the objective's 1024-instance sub, the persistent
+# grid's first round of tiles (132 SMs) and three rounds (the ring's slots
+# reused), n % 4 != 0 (4-byte copies), every instance in one cluster, a NaN
+# cluster's weights, rows with prev < 0 (every case), |x| ~ 50, a batch
+# whose Φ overflows to +Inf, ADNI's shape (2, 4) (the generic build,
+# 128-instance tiles, two slots), and the largest Φ the header's float32
+# body took at C = 32 and C = 16 (T·s = 512: the generic build,
+# 32-instance tiles, one slot at C = 32, two at C = 16)
+_K4A_CASES = {
+    "C1": dict(C=1), "C8": dict(C=8), "C16": dict(C=16), "C17": dict(C=17), "C32": dict(C=32),
+    "n=tile-1": dict(n=127), "n=tile": dict(n=128), "n=tile+1": dict(n=129),
+    "n=sub": dict(n=1024), "n=sub+1": dict(n=1025), "n%4": dict(n=20037),
+    "n=round": dict(n=128 * 132), "n=round+1": dict(n=128 * 132 + 1), "n=3rounds+5": dict(n=3 * 128 * 132 + 5),
+    "one-cluster": dict(one_cluster=True), "nan-cluster": dict(nan_cluster=1),
+    "wide": dict(scale=50.0), "overflow": dict(overflow=True), "adni-shape": dict(d=2, l=4, n=5003),
+    "Fcp296-C32": dict(T=32, d=9, l=4, C=32, n=3001), "Fcp352-C16": dict(T=32, d=10, l=4, C=16, n=2050),
+}
+
+
+@pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
+@pytest.mark.parametrize("case", list(_K4A_CASES))
+def test_em_packed_f32_body_at_its_edges(cuda, case, assign_mode):
+    """Float32 K4a: assignments, counts and switches bit for bit K1's on
+    K2's float32 Φ with the same folded weights; its objective bit for bit
+    float32 K4b's at R = 1 (the header's order) where the scores are
+    finite, within 2e-6 of the same sum over |best score| of K1's (K1 sums
+    in its own order); statistics within 2e-5 of the plain version's sums
+    over |u| in float64 (the same NaN, +Inf or -Inf where the float32 Φ
+    summed per instance in float64 is not finite); the same bits on two
+    calls."""
+    kw = _K4A_CASES[case]
+    (T, d, l), u, lens, Wg, prev, _force = _k4b_case(cuda, R=1, **kw)
+    Wg, prev = Wg[0], prev[0].contiguous()
+    C = Wg.shape[0]
+    opts = dict(T=T, d=d, l=l, assign_mode=assign_mode)
+    before = mk.markov_em_fused_packed.launches
+    out = mk.markov_em_fused_packed(u, lens, prev, Wg, **opts)
+    assert mk.markov_em_fused_packed.launches == before + 1
+    for x1, x2 in zip(out, mk.markov_em_fused_packed(u, lens, prev, Wg, **opts)):
+        if x1.is_floating_point():  # bit for bit, NaN included
+            x1, x2 = x1.view(torch.int32), x2.view(torch.int32)
+        assert torch.equal(x1, x2)
+    a, c, s, g, obj = out
+    valid = prev >= 0
+    assert bool((a[~valid] == C).all())
+    phi = mk.markov_materialize_features(u, lens, T=T, d=d, l=l)
+    wc = mk.fold_weights(Wg, T=T, d=d, l=l)
+    a1, c1, s1, _m1, o1 = mk.markov_em_compact(phi, prev, wc, assign_mode=assign_mode)
+    assert torch.equal(a, a1) and torch.equal(c, c1) and torch.equal(s, s1)
+    if assign_mode == "prev":
+        assert bool((a[valid] == prev[valid]).all()) and int(s) == 0 and float(obj) == 0.0
+    elif kw.get("nan_cluster") is not None:  # the first maximum, NaN counted as the maximum
+        assert bool((a[valid] == kw["nan_cluster"]).all()) and bool(torch.isnan(obj)) and bool(torch.isnan(o1))
+    elif not kw.get("overflow"):
+        best = (wc.double() @ phi.double()).gather(0, a.clamp_max(C - 1).long()[None])[0]
+        mag = float(torch.where(valid, best.abs(), 0.0).sum())
+        assert abs(float(obj) - float(o1)) <= 2e-6 * mag + 1e-30
+        k4b = mk.markov_em_fused_packed_multi(u, lens, prev[None], Wg[None], T=T, d=d, l=l)
+        assert torch.equal(k4b[0][0], a) and obj.view(torch.int32) == k4b[4][0].view(torch.int32)
+    if kw.get("one_cluster") and assign_mode == "argmax":
+        assert bool((a[valid] == 0).all())
+    a_in = torch.where(valid, a, -1)
+    plain = mk.markov_em_fused_packed_plain
+    _a, c_q, _s, _g, _o = plain(u, lens, a_in, Wg, T=T, d=d, l=l, assign_mode="prev")
+    assert torch.equal(c, c_q)
+    W64 = Wg.double()
+    _a, _c, _s, g_q, _o = plain(u.double(), lens, a_in, W64, T=T, d=d, l=l, assign_mode="prev")
+    _a, _c, _s, g_abs, _o = plain(u.abs().double(), lens, a_in, W64, T=T, d=d, l=l, assign_mode="prev")
+    pos = torch.as_tensor(mk.markov_compact_spec(T, d, l)[2], device=cuda)
+    own = torch.zeros((C + 1, phi.shape[0]), dtype=torch.float64, device=cuda).index_add_(
+        0, torch.where(a_in >= 0, a_in, C).long(), phi.double().T)[:C].T[pos]
+    fin = torch.isfinite(own)
+    assert bool(((g.double() - g_q).abs()[fin] <= 2e-5 * g_abs[fin] + 1e-30).all())
+    for cls in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(cls(g), cls(own))
+    if kw.get("overflow"):
+        assert bool(torch.isposinf(g).any())
+
+
+def test_em_packed_f32_body_plan_matches_the_kernel(cuda):
+    """The host plan's shared memory is the CUDA source's, and its launch
+    fits the card."""
+    lib = _build.library()
+    for T, d, l, C in ((10, 5, 3, 16), (10, 2, 4, 16), (10, 5, 3, 32), (64, 5, 3, 32), (32, 9, 4, 32),
+                       (32, 10, 4, 16), (1, 1, 0, 1), (63, 4, 4, 8)):
+        for argmax in (True, False):
+            plan = mk.packed_one_plan(T, d, l, C, argmax=argmax)
+            Fcp = mk.markov_compact_spec(T, d, l)[0]
+            Ts = T * 8 * ((d + l + 7) // 8)
+            assert plan.smem == lib.mtm_markov_em_packed_one_smem(Fcp, Ts, C, plan.nt, plan.ring, int(argmax))
+            launch = mk._packed_one_config(cuda.index or 0, T, d, l, C, argmax)
+            assert launch.smem == plan.smem and launch.blocks_per_sm >= 1 and launch.threads == plan.threads
 
 
 def test_pool_cuda_f64_matches_sequential(cuda):
