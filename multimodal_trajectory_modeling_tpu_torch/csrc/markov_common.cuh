@@ -17,6 +17,8 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <atomic>
+
 namespace mtm {
 
 // statistic types: in-block shared/partial (S) and across-block total (G);
@@ -80,15 +82,39 @@ __device__ V block_sum(V v, V* red) {
 }
 
 // The sum of part[b · stride] over the blocks b < nblocks in a fixed
-// order, valid in lane 0: lane k sums blocks k, k + 32, ... in order, then
-// a fixed shuffle tree.  One warp an output of a partials' reduce.
-template <typename V>
-__device__ __forceinline__ V warp_total(const V* __restrict__ part, int64_t stride, int64_t nblocks) {
-  V a = V(0);
-  for (int64_t b = threadIdx.x & 31; b < nblocks; b += 32) a += part[b * stride];
+// order, in type A (V's own by default), valid in lane 0: lane k sums
+// blocks k, k + 32, ... in order, then a fixed shuffle tree.  One warp an
+// output of a partials' reduce.
+template <typename V, typename A = V>
+__device__ __forceinline__ A warp_total(const V* __restrict__ part, int64_t stride, int64_t nblocks) {
+  A a = A(0);
+  for (int64_t b = threadIdx.x & 31; b < nblocks; b += 32) a += static_cast<A>(part[b * stride]);
   for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
   return a;
 }
+
+// A kernel's dynamic shared-memory limit, raised on each device only when
+// a launch needs more than it was last set to: one static SmemLimit per
+// kernel instantiation, so the attribute is set once, not on every call.
+struct SmemLimit {
+  static constexpr int kDevices = 64;
+  std::atomic<int> bytes[kDevices] = {};
+
+  template <class Kernel>
+  cudaError_t raise(Kernel kernel, size_t smem) {
+    int dev = 0;
+    cudaError_t err = cudaGetDevice(&dev);
+    if (err != cudaSuccess) return err;
+    if (dev < kDevices && (int)smem <= bytes[dev].load(std::memory_order_relaxed)) return cudaSuccess;
+    err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err == cudaSuccess && dev < kDevices) {
+      int cur = bytes[dev].load(std::memory_order_relaxed);
+      while ((int)smem > cur && !bytes[dev].compare_exchange_weak(cur, (int)smem)) {
+      }
+    }
+    return err;
+  }
+};
 
 // Adds one tile of nj instances to float statistics in a fixed order, so
 // that they are the same bit for bit from run to run: thread f owns row f

@@ -223,8 +223,8 @@ int run(const EmArgs& a) {
   const int64_t nblocks = (a.n + a.chunk - 1) / a.chunk;
   const size_t smem = smem_bytes<PhiT, WT>(a.Fcp, a.C, ARGMAX ? CB : 0);
   auto kern = markov_em_kernel<PhiT, WT, CB, ARGMAX>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  static mtm::SmemLimit limit;
+  cudaError_t err = limit.raise(kern, smem);
   if (err != cudaSuccess) return (int)err;
   kern<<<(unsigned)nblocks, kThreads, smem, a.stream>>>(
       static_cast<const PhiT*>(a.phi), a.prev, static_cast<const WT*>(a.wc),

@@ -83,8 +83,11 @@
 #include <stdint.h>
 
 #include "markov_em_multi.cuh"
+#include "markov_int16_tile.cuh"
 
 namespace {
+
+using namespace mtm::i16;
 
 constexpr int kT = 256;           // threads of a block = instances of a tile
 constexpr int kWarpsT = kT / 32;  // warps of a block
@@ -128,133 +131,11 @@ MmaPlan pick_mma(int Fcp, int cb, size_t wsize, int ipt) {
   return {0, 0, false};
 }
 
-// Element j of tile row f: 16-byte chunks XOR-swizzled by (f & 3).
-__device__ __forceinline__ int tile_col(int f, int j) {
-  return (((j >> 3) ^ ((f & 3) << 1)) << 3) | (j & 7);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes));
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::);
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
-}
-
-// d += a · b for a 16×32 A (s8 or u8) and a 32×8 u8 B, s32 accumulators.
-__device__ __forceinline__ void mma_s8u8(int* d, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.u8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-__device__ __forceinline__ void mma_u8u8(int* d, const unsigned* a, const unsigned* b) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.u8.u8.s32 {%0,%1,%2,%3}, "
-      "{%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// 0x01 in each byte of x equal to c, else 0x00 (exact; no carry between
-// bytes).
-__device__ __forceinline__ unsigned onehot4(unsigned x, unsigned c) {
-  const unsigned y = x ^ (c * 0x01010101u);
-  const unsigned t = ((y & 0x7F7F7F7Fu) + 0x7F7F7F7Fu) | y | 0x7F7F7F7Fu;
-  return (~t) >> 7;
-}
-
-// Four int16 of a tile row (8 bytes at `p`) as the hi (s8) and lo (u8)
-// bytes of one A-fragment register each.
-__device__ __forceinline__ void split4(const int16_t* p, unsigned* hi, unsigned* lo) {
-  const uint2 v = *reinterpret_cast<const uint2*>(p);
-  *hi = __byte_perm(v.x, v.y, 0x7531);
-  *lo = __byte_perm(v.x, v.y, 0x6420);
-}
-
-// 16 bytes of weights, for vector loads from shared memory.
-template <typename WT>
-struct alignas(16) W16 {
-  WT x[16 / sizeof(WT)];
-};
-
 // Instances a thread scores together, each weight load serving all of
 // them: at most 64 score registers.
 template <typename WT, int CB>
 __host__ __device__ constexpr int ipt() {
   return 64 / (CB * (int)sizeof(WT) / 4) < 4 ? 64 / (CB * (int)sizeof(WT) / 4) : 4;
-}
-
-// An int16's raw 16 bits (0..65535) as the exact WT value of the int16,
-// with two full-rate operations (the magic-number form of the conversion).
-__device__ __forceinline__ float int16_raw_to(unsigned raw, float*) {
-  return __int_as_float(raw ^ 0x4B008000u) - 8421376.0f;  // 2^23 + 2^15
-}
-__device__ __forceinline__ double int16_raw_to(unsigned raw, double*) {
-  return __hiloint2double(0x43300000, raw ^ 0x8000u) - 4503599627403264.0;  // 2^52 + 2^15
-}
-
-// The raw bits of IPT neighbouring int16 of a tile row (IPT = 1, 2, 4).
-template <int IPT>
-__device__ __forceinline__ void load_raw(const int16_t* p, unsigned (&raw)[IPT]) {
-  if constexpr (IPT == 4) {
-    const uint2 v = *reinterpret_cast<const uint2*>(p);
-    raw[0] = v.x & 0xFFFFu;
-    raw[1] = v.x >> 16;
-    raw[2] = v.y & 0xFFFFu;
-    raw[3] = v.y >> 16;
-  } else if constexpr (IPT == 2) {
-    const unsigned v = *reinterpret_cast<const unsigned*>(p);
-    raw[0] = v & 0xFFFFu;
-    raw[1] = v >> 16;
-  } else {
-    raw[0] = *reinterpret_cast<const unsigned short*>(p);
-  }
-}
-
-// One step of K1's FMA chain for IPT instances: sc[u][c] += w[f, c] ·
-// Φ[f, j0 + u], the instances at column cl of tile row f.
-template <typename WT, int CB, int IPT>
-__device__ __forceinline__ void fma_row(WT (&sc)[IPT][CB], const WT* w,
-                                        const int16_t* tile, int f, int cl) {
-  constexpr int VW = 16 / (int)sizeof(WT);  // weights per vector load
-  unsigned raw[IPT];
-  load_raw<IPT>(tile + f * kT + cl, raw);
-  WT v[IPT];
-#pragma unroll
-  for (int u = 0; u < IPT; ++u) v[u] = int16_raw_to(raw[u], (WT*)nullptr);
-  const W16<WT>* wf = reinterpret_cast<const W16<WT>*>(w + f * CB);
-#pragma unroll
-  for (int q = 0; q < CB / VW; ++q) {
-    const W16<WT> wv = wf[q];
-#pragma unroll
-    for (int e = 0; e < VW; ++e)
-#pragma unroll
-      for (int u = 0; u < IPT; ++u)
-        sc[u][q * VW + e] = mtm::fused_ma(wv.x[e], v[u], sc[u][q * VW + e]);
-  }
-}
-
-// K1's FMA chain over `nrows` rows of the tile for the IPT instances from
-// column j0, the weights `w` starting at the tile's first row.
-template <typename WT, int CB, int IPT>
-__device__ __forceinline__ void score_rows(WT (&sc)[IPT][CB], const WT* w,
-                                           const int16_t* tile, int nrows, int j0) {
-  const int c0 = tile_col(0, j0), c1 = tile_col(1, j0);
-  const int c2 = tile_col(2, j0), c3 = tile_col(3, j0);
-  int f = 0;
-  for (; f + 4 <= nrows; f += 4) {
-    fma_row<WT, CB, IPT>(sc, w, tile, f, c0);
-    fma_row<WT, CB, IPT>(sc, w, tile, f + 1, c1);
-    fma_row<WT, CB, IPT>(sc, w, tile, f + 2, c2);
-    fma_row<WT, CB, IPT>(sc, w, tile, f + 3, c3);
-  }
-  for (; f < nrows; ++f) fma_row<WT, CB, IPT>(sc, w, tile, f, tile_col(f, j0));
 }
 
 // STRIP: the tile holds FS of the Fcp rows at a time (RG ≤ IPT, so a
@@ -387,7 +268,7 @@ __global__ void __launch_bounds__(kT, 1)
         }
         if (scored) {
           const int fb = s * FS;
-          score_rows<WT, CB, IPT>(ssc, s_w + ((size_t)rr * Fcp + fb) * CB, s_tile,
+          score_rows<WT, CB, IPT, kT>(ssc, s_w + ((size_t)rr * Fcp + fb) * CB, s_tile,
                                   FS < Fcp - fb ? FS : Fcp - fb, j0);
         }
       }
@@ -421,7 +302,7 @@ __global__ void __launch_bounds__(kT, 1)
               for (int u = 0; u < IPT; ++u)
 #pragma unroll
                 for (int c = 0; c < CB; ++c) sc[u][c] = WT(0);
-              score_rows<WT, CB, IPT>(sc, s_w + (size_t)rr * Fcp * CB, s_tile, Fcp, j0);
+              score_rows<WT, CB, IPT, kT>(sc, s_w + (size_t)rr * Fcp * CB, s_tile, Fcp, j0);
             }
 #pragma unroll
             for (int u = 0; u < IPT; ++u) {

@@ -50,6 +50,11 @@ _SIGNATURES = {
         _LL, _I, _I, _I, _I, _P,
     ],
     "mtm_markov_em_max_clusters": [],
+    "mtm_markov_em_one": [
+        _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
+        _LL, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_markov_em_one_config": [_I, _I, _I, _I, _I, _P],
     "mtm_markov_em_multi": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _LL, _I, _I, _I, _I, _I, _I, _P,

@@ -10,7 +10,9 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
 - K2 ``markov_materialize_features`` (:1314) → ``csrc/markov_features.cu``;
 - K5 ``markov_materialize_features_longT`` (:1842) →
   ``csrc/markov_features_longT.cu``;
-- K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em.cu``;
+- K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em_one.cu``
+  under int16 Φ (planned by :func:`k1_plan`), ``csrc/markov_em.cu`` for
+  wide Φ and int16 Φ too tall for the new body;
 - K3 ``markov_em_from_features_multi`` (:1658), K4a
   ``markov_em_fused_packed`` (:727) and K4b
   ``markov_em_fused_packed_multi`` (:898) → ``csrc/markov_em_multi.cu``
@@ -73,12 +75,16 @@ from multimodal_trajectory_modeling_tpu_torch.ops.markov import canonical_weight
 from multimodal_trajectory_modeling_tpu_torch.ops.row_plan import MaskedPlan, masked_plan
 
 __all__ = [
+    "K1Launch",
+    "K1Plan",
     "PackedOnePlan",
     "PackedPlan",
     "PhiQuant",
     "RawBatch",
     "dequantize_phi",
     "fold_weights",
+    "k1_plan",
+    "k1_smem",
     "markov_assign_suffix",
     "markov_assign_suffix_plain",
     "markov_em_fused",
@@ -114,10 +120,12 @@ __all__ = [
     "quantize_phi",
 ]
 
-# Instances per block of K1; int16 statistics are summed in int32 inside
-# a block, which holds for up to 65536 instances.  K3/K4 take their
-# objective partials per _EM_CHUNK instances too (so that K3's objective
-# is K1's bit for bit), and their statistics per _multi_chunk(R).
+# Instances per block of K1's atomics body (csrc/markov_em.cu), whose
+# int16 statistics are summed in int32 inside a block (exact for up to
+# 65536 instances), and the chunk of K1's objective order: both K1 bodies
+# sum the objective per _EM_CHUNK instances in that body's order, and K3/K4
+# take their objective partials per _EM_CHUNK too (so that K3's objective
+# is K1's bit for bit), their statistics per _multi_chunk(R).
 _EM_CHUNK = 1024
 
 
@@ -706,6 +714,99 @@ def markov_em_compact_plain(
     )
 
 
+# K1's int16 body (csrc/markov_em_one.cu): instances a tile and threads a
+# block; a block takes at most _K1_BLOCK_INSTANCES instances, so that its
+# int32 statistics stay exact
+_K1_NT = 128
+_K1_THREADS = 128
+_K1_BLOCK_INSTANCES = 65536
+
+
+class K1Plan(NamedTuple):
+    """A launch of K1's int16 body: a ring of ``ring`` Φ tiles of 128
+    instances (2, or 1 where two do not fit), ``smem`` bytes of shared
+    memory, the ``blocks_per_sm`` that shared memory allows, copies of
+    ``copy`` bytes (16 where n % 8 == 0, 4 where n is even, else 2: plain
+    loads) and the ``min_grid`` blocks that keep every block at 65536
+    instances or fewer."""
+
+    ring: int
+    smem: int
+    blocks_per_sm: int
+    copy: int
+    min_grid: int
+
+
+class K1Launch(NamedTuple):
+    """K1's int16 body on a device: its ring and shared memory, then what
+    the runtime gives it: threads a block, blocks an SM (registers and
+    shared memory), SMs, registers and local (spill) bytes a thread."""
+
+    ring: int
+    smem: int
+    threads: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+
+def _cluster_bound(C: int) -> int:
+    return 8 if C <= 8 else 16 if C <= 16 else 32
+
+
+def k1_smem(Fcp: int, C: int, dtype, ring: int, *, argmax: bool = True) -> int:
+    """Shared memory of a block of K1's int16 body (``one_smem`` in the
+    CUDA source): the weights ``(Fcp, CB)`` in ``dtype`` under argmax, the
+    ring of Φ tiles ``(ring, Fcp, 128)`` int16, the int32 statistics
+    ``(Fcp, CB)``, 32 ints of a block sum's scratch and the tile's
+    assignments (128 bytes); CB is C rounded up to 8, 16 or 32."""
+    cb = _cluster_bound(C)
+    return (dtype.itemsize * Fcp * cb if argmax else 0) + 2 * ring * Fcp * _K1_NT + 4 * Fcp * cb + 4 * 32 + _K1_NT
+
+
+def k1_plan(Fcp: int, C: int, dtype, n: int, *, argmax: bool = True):
+    """The route of K1 under int16 Φ with ``dtype`` weights: a
+    :class:`K1Plan` of the new body (``csrc/markov_em_one.cu``), a ring of
+    two tiles where it fits 232 448 bytes, else one; or None, where one
+    tile does not fit either, for the atomics body of ``csrc/markov_em.cu``
+    (which takes such tall Φ up to its own limit)."""
+    if dtype not in (torch.float32, torch.float64) or not 1 <= C <= 32 or Fcp < 1 or n < 1:
+        return None
+    for ring in (2, 1):
+        smem = k1_smem(Fcp, C, dtype, ring, argmax=argmax)
+        if smem <= _MAX_SMEM:
+            copy = 16 if n % 8 == 0 else 4 if n % 2 == 0 else 2
+            ntiles = -(-n // _K1_NT)
+            min_grid = -(-ntiles // (_K1_BLOCK_INSTANCES // _K1_NT))
+            blocks = min(_SM_SMEM // (smem + 1024), 2048 // _K1_THREADS, 32)
+            return K1Plan(ring, smem, blocks, copy, min_grid)
+    return None
+
+
+@functools.lru_cache(maxsize=None)
+def _k1_config(device: int, Fcp: int, C: int, wkind: int, argmax: bool, ring: int) -> K1Launch:
+    """The :class:`K1Launch` of K1's int16 body at this shape on
+    ``device``."""
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = _build.library().mtm_markov_em_one_config(wkind, Fcp, C, int(argmax), ring, out)
+    _build.check(rc, "markov_em_compact (its launch)")
+    return K1Launch(ring, *out)
+
+
+def _scratch(device, parts):
+    """One allocation for a launch's partials: the tensor (keep it until
+    the launch is enqueued) and the device address of each part
+    ((elements, dtype) each), 16-byte aligned."""
+    offs, total = [], 0
+    for k, dt in parts:
+        offs.append(total)
+        total += -(-k * dt.itemsize // 16) * 16
+    buf = torch.empty((total,), dtype=torch.uint8, device=device)
+    return buf, [buf.data_ptr() + o for o in offs]
+
+
 def markov_em_compact(
     phi: torch.Tensor,  # (Fc_pad, n) int16 payload, or wide float
     prev: torch.Tensor,  # (n,) int32; < 0 marks rows to leave out
@@ -721,7 +822,10 @@ def markov_em_compact(
     member counts, switches against ``prev`` and Σ max score over the
     valid rows; and the per-cluster sums of Φ's rows — int64 and exact
     for int16 Φ, else in ``wc``'s dtype.  CUDA tensors launch
-    ``csrc/markov_em.cu``; CPU tensors take the plain version."""
+    ``csrc/markov_em_one.cu`` for int16 Φ where :func:`k1_plan` finds a
+    block, else ``csrc/markov_em.cu`` (wide Φ, and int16 Φ too tall for
+    the new body; the five outputs are the same bits either way); CPU
+    tensors take the plain version."""
     if phi.ndim != 2 or prev.shape != (phi.shape[1],):
         raise ValueError(
             f"phi (Fc_pad, n) and prev (n,) disagree: {tuple(phi.shape)}, "
@@ -751,44 +855,40 @@ def markov_em_compact(
     lib = _build.library()
     _check_clusters(lib, C)
     argmax = assign_mode == "argmax"
-    pk, wk = _PHI_KINDS[phi.dtype], _W_KINDS[wc.dtype]
     quant = phi.dtype == torch.int16
-    part_dtype = torch.int32 if quant else wc.dtype
+    wk = _W_KINDS[wc.dtype]
     macc_dtype = torch.int64 if quant else wc.dtype
-    nblocks = -(-n // _EM_CHUNK)
     empty = functools.partial(torch.empty, device=phi.device)
-    part_stats = empty((nblocks, Fcp, C), dtype=part_dtype)
-    part_counts = empty((nblocks, C), dtype=torch.int32)
-    part_sw = empty((nblocks,), dtype=torch.int32)
-    part_obj = empty((nblocks,), dtype=wc.dtype)
-    assign = empty((n,), dtype=torch.int32)
-    counts = empty((C,), dtype=torch.int32)
-    switches = empty((), dtype=torch.int32)
-    macc = empty((Fcp, C), dtype=macc_dtype)
-    obj = empty((), dtype=wc.dtype)
-    rc = lib.mtm_markov_em(
-        _device_index(phi),
-        pk,
-        wk,
-        phi.data_ptr(),
-        prev.data_ptr(),
-        wc.data_ptr(),
-        assign.data_ptr(),
-        part_stats.data_ptr(),
-        part_counts.data_ptr(),
-        part_sw.data_ptr(),
-        part_obj.data_ptr(),
-        macc.data_ptr(),
-        counts.data_ptr(),
-        switches.data_ptr(),
-        obj.data_ptr(),
-        n,
-        Fcp,
-        C,
-        _EM_CHUNK,
-        int(argmax),
-        torch.cuda.current_stream(phi.device).cuda_stream,
-    )
+    assign, counts, switches = empty((n,), dtype=torch.int32), empty((C,), dtype=torch.int32), empty((), dtype=torch.int32)
+    macc, obj = empty((Fcp, C), dtype=macc_dtype), empty((), dtype=wc.dtype)
+    dev = _device_index(phi)
+    stream = torch.cuda.current_stream(phi.device).cuda_stream
+    plan = k1_plan(Fcp, C, wc.dtype, n, argmax=argmax) if quant else None
+    if plan is not None:
+        launch = _k1_config(dev, Fcp, C, wk, argmax, plan.ring)
+        grid = min(-(-n // _K1_NT), max(launch.blocks_per_sm * launch.sms, plan.min_grid))
+        buf, (stats, cnts, sw, scratch) = _scratch(
+            phi.device,
+            ((grid * Fcp * C, torch.int32), (grid * C, torch.int32), (grid, torch.int32),
+             (n + -(-n // _EM_CHUNK), wc.dtype)),
+        )
+        rc = lib.mtm_markov_em_one(
+            dev, wk, phi.data_ptr(), prev.data_ptr(), wc.data_ptr(), assign.data_ptr(), stats, cnts, sw,
+            scratch, macc.data_ptr(), counts.data_ptr(), switches.data_ptr(), obj.data_ptr(), n, Fcp, C,
+            _EM_CHUNK, int(argmax), plan.ring, plan.copy, grid, stream,
+        )
+    else:
+        nblocks = -(-n // _EM_CHUNK)
+        buf, (stats, cnts, sw, part_obj) = _scratch(
+            phi.device,
+            ((nblocks * Fcp * C, torch.int32 if quant else wc.dtype), (nblocks * C, torch.int32),
+             (nblocks, torch.int32), (nblocks, wc.dtype)),
+        )
+        rc = lib.mtm_markov_em(
+            dev, _PHI_KINDS[phi.dtype], wk, phi.data_ptr(), prev.data_ptr(), wc.data_ptr(), assign.data_ptr(),
+            stats, cnts, sw, part_obj, macc.data_ptr(), counts.data_ptr(), switches.data_ptr(), obj.data_ptr(),
+            n, Fcp, C, _EM_CHUNK, int(argmax), stream,
+        )
     _build.check(rc, "markov_em_compact")
     markov_em_compact.launches += 1
     return assign, counts, switches, macc, obj

@@ -10,7 +10,11 @@ Tolerances: K2 differs from its plain version only in summation order and
 in summing the masked rows directly, so each row agrees to 1e-5 (float32)
 or 1e-12 (float64) of its absmax.  K1 under int16 Φ sums integers, so its
 statistics are exact; its float32 scores may flip an argmax only where the
-float64 top-2 gap is below 1e-4·(1 + |score|).  K3 is K1 for R restarts:
+float64 top-2 gap is below 1e-4·(1 + |score|); its int16 body
+(``csrc/markov_em_one.cu``) equals the atomics body (``csrc/markov_em.cu``,
+which keeps wide Φ and the tallest int16 Φ) bit for bit in all five
+outputs, at its edges (copy widths, n, C, float64 weights, one cluster, a
+NaN cluster, the canonical Φ's rows, one tile of ring).  K3 is K1 for R restarts:
 slot r equals a K1 call on slot r's weights bit for bit (assignments,
 counts, switches, int16 statistics, objective), and its int16 body is
 held so at its edges (one cluster, int16 extremes, n around a chunk and a
@@ -197,6 +201,140 @@ def test_em_kernel_refuses_bad_arguments(cuda):
     wide = torch.zeros((33, pq.q.shape[0]), device=cuda)
     with pytest.raises(ValueError, match="at most"):
         mk.markov_em_compact(pq.q, prev, wide)
+
+
+def _k1_case_inputs(cuda, C=16, n=20037, Fcp=None, wdtype=torch.float32, one_cluster=False, nan_cluster=None,
+                    seed=13):
+    """K1's inputs for the int16 body's edges: the bench Φ (Fcp = 112) or a
+    random int16 Φ of ``Fcp`` rows (rows at -32768 and 32767 among them),
+    weights of score magnitude (``one_cluster``: every cluster the same
+    weights, so every instance takes cluster 0; ``nan_cluster``: that
+    cluster's weights NaN, so it wins every instance), prev with rows left
+    out."""
+    rng = np.random.default_rng(seed)
+    if Fcp is None:
+        q = _em_inputs(cuda, C=C, n=n, seed=seed)[0].q
+    else:
+        qn = rng.integers(-32768, 32768, size=(Fcp, n)).astype(np.int16)
+        qn[0], qn[1] = -32768, 32767
+        q = torch.tensor(qn, device=cuda)
+    wc = torch.tensor(rng.normal(size=(C, q.shape[0])) * 1e-3, dtype=wdtype, device=cuda)
+    if Fcp is not None:
+        wc = wc * 1e-3
+    if one_cluster:
+        wc = wc[:1].expand(C, -1).contiguous()
+    if nan_cluster is not None:
+        wc[nan_cluster] = float("nan")
+    prev = torch.tensor(rng.integers(0, C, size=n).astype(np.int32), device=cuda)
+    prev[::97] = -1
+    return q, prev, wc
+
+
+# K1's int16 body (csrc/markov_em_one.cu) at its edges: n a multiple of 8
+# (16-byte copies), even (4-byte copies) and odd (plain loads), one tile
+# or less, ragged tiles; C from 1 to 32; float64 weights; every instance in
+# one cluster; a NaN cluster; the canonical Φ's 144 rows; one tile of
+# ring where two do not fit; the bench shape at n = 1e6 and 1e6+37
+_K1_CASES = {
+    "aligned": dict(n=20480), "unaligned": dict(n=20037), "even": dict(n=20482), "n=1": dict(n=1),
+    "n=129": dict(n=129), "C1": dict(C=1), "C3": dict(C=3), "C32": dict(C=32),
+    "f64": dict(wdtype=torch.float64), "f64-C32-aligned": dict(C=32, n=20480, wdtype=torch.float64),
+    "one-cluster": dict(one_cluster=True), "nan-cluster": dict(nan_cluster=1),
+    "Fcp144": dict(Fcp=144, n=20000), "Fcp144-C32-odd": dict(Fcp=144, C=32, n=20001),
+    "Fcp300-ring1-f64": dict(Fcp=300, C=32, n=8296, wdtype=torch.float64),
+    "bench-1e6": dict(n=1_000_000), "bench-1e6+37": dict(n=1_000_037),
+}
+
+
+def _k1_both(monkeypatch, q, prev, wc, assign_mode):
+    """K1 through the int16 body (its route asserted, its launch counted),
+    then through the atomics body (``k1_plan`` patched to send the shape
+    there)."""
+    argmax = assign_mode == "argmax"
+    assert mk.k1_plan(q.shape[0], wc.shape[0], wc.dtype, q.shape[1], argmax=argmax) is not None
+    before = mk.markov_em_compact.launches
+    new = mk.markov_em_compact(q, prev, wc, assign_mode=assign_mode)
+    assert mk.markov_em_compact.launches == before + 1
+    with monkeypatch.context() as m:
+        m.setattr(mk, "k1_plan", lambda *a, **k: None)
+        old = mk.markov_em_compact(q, prev, wc, assign_mode=assign_mode)
+    return new, old
+
+
+def _same_bits_any(p, q):
+    """Bit equality of two tensors (floats through their integer view)."""
+    if p.is_floating_point():
+        iv = torch.int32 if p.dtype == torch.float32 else torch.int64
+        return p.dtype == q.dtype and torch.equal(p.view(iv), q.view(iv))
+    return p.dtype == q.dtype and torch.equal(p, q)
+
+
+@pytest.mark.parametrize("assign_mode", ["argmax", "prev"])
+@pytest.mark.parametrize("case", list(_K1_CASES))
+def test_em_one_body_is_the_atomics_body(cuda, monkeypatch, case, assign_mode):
+    """The int16 body's five outputs equal the atomics body's bit for bit
+    (objective included, NaN bits too), and two calls give the same bits;
+    against the plain version: counts and int64 statistics exact under the
+    body's own assignments, rows left out at C, switches counted from the
+    assignments, the argmax flipping only at float64 near ties (1e-4 ·
+    (1 + |score|)) and, with a NaN cluster, the plain version's first NaN
+    for every row."""
+    kw = _K1_CASES[case]
+    q, prev, wc = _k1_case_inputs(cuda, **kw)
+    C = wc.shape[0]
+    new, old = _k1_both(monkeypatch, q, prev, wc, assign_mode)
+    for x_n, x_o in zip(new, old):
+        assert _same_bits_any(x_n, x_o)
+    again = mk.markov_em_compact(q, prev, wc, assign_mode=assign_mode)
+    for x_n, x_a in zip(new, again):
+        assert _same_bits_any(x_n, x_a)
+    a, c, s, macc, obj = new
+    valid = prev >= 0
+    assert bool((a[~valid] == C).all())
+    _a, c_p, _s, macc_p, _o = mk.markov_em_compact_plain(q, torch.where(valid, a, -1), wc, assign_mode="prev")
+    assert macc.dtype == torch.int64 and torch.equal(macc, macc_p) and torch.equal(c, c_p)
+    if assign_mode == "prev":
+        assert bool((a[valid] == prev[valid]).all()) and int(s) == 0 and float(obj) == 0.0
+        return
+    assert int(s) == int(((a != prev) & valid).sum())
+    if kw.get("nan_cluster") is not None:
+        _b, na_p = mk._argmax_first(wc @ q.to(wc.dtype))
+        assert bool((a[valid] == na_p[valid]).all()) and bool(torch.isnan(obj))
+        return
+    if kw.get("one_cluster"):
+        assert bool((a[valid] == 0).all()) and int(c[0]) == int(valid.sum())
+    scores = wc.double() @ q.double()
+    top2 = scores.topk(min(2, C), dim=0).values
+    near = (top2[0] - top2[-1]) < 1e-4 * (1 + top2[0].abs())  # C = 1: every row
+    assert bool(((a == scores.argmax(dim=0).to(torch.int32)) | near | ~valid).all())
+
+
+def test_em_one_body_refers_the_tallest_phi_to_the_atomics_body(cuda):
+    """The largest Fcp the atomics body took at C = 32 with float32 weights
+    (907 rows: no tile of the int16 body fits) goes there, and agrees with
+    the plain version: counts and statistics exact."""
+    Fcp = max(f for f in range(1, 2000) if 4 * (8 + f * 32) + 4 * f * 32 + 4 * 40 <= 232448)
+    q, prev, wc = _k1_case_inputs(cuda, C=32, n=3001, Fcp=Fcp)
+    assert mk.k1_plan(Fcp, 32, wc.dtype, 3001) is None
+    a, c, s, macc, _obj = mk.markov_em_compact(q, prev, wc)
+    valid = prev >= 0
+    _a, c_p, _s, macc_p, _o = mk.markov_em_compact_plain(q, torch.where(valid, a, -1), wc, assign_mode="prev")
+    assert torch.equal(macc, macc_p) and torch.equal(c, c_p)
+    assert int(s) == int(((a != prev) & valid).sum())
+
+
+@pytest.mark.parametrize("Fcp,C,dtype,argmax", [(112, 16, torch.float32, True), (112, 32, torch.float32, False),
+                                                (144, 16, torch.float32, True), (300, 32, torch.float64, True)])
+def test_em_one_body_plan_matches_the_kernel(cuda, Fcp, C, dtype, argmax):
+    """The plan's shared memory is the kernel's, a block is 128 threads,
+    at least one block an SM runs, nothing spills; the bench shape runs
+    three blocks an SM."""
+    plan = mk.k1_plan(Fcp, C, dtype, 10**6, argmax=argmax)
+    launch = mk._k1_config(torch.cuda.current_device(), Fcp, C, mk._W_KINDS[dtype], argmax, plan.ring)
+    assert launch.smem == plan.smem and launch.threads == 128
+    assert 1 <= launch.blocks_per_sm <= plan.blocks_per_sm and launch.local_bytes == 0
+    if (Fcp, C, dtype, argmax) == (112, 16, torch.float32, True):
+        assert launch.blocks_per_sm == 3
 
 
 @pytest.mark.parametrize("kernel", ["K1", "K3", "K4a", "K4b"])
