@@ -27,7 +27,8 @@ What is ported so far:
   past that gate: ``train(fast=True)`` and the fast multistart (one
   candidate after another, or pooled under ``MTM_MASKED_POOL=1``), with
   kernel K7 (``ops/kalman_kernels.py``; the filters in plain torch in
-  ``ops/kalman.py``);
+  ``ops/kalman.py``) and, one candidate at a time, the M step through
+  kernel K15 on the batch in place (``ops/mstep_kernels.py``);
 - the complete-data inference methods (log-likelihoods per cluster,
   propensities over time, ``e_complete_data_log_lik``,
   ``model_log_likelihood``, ``aic``/``bic``, ``mle_cluster_assignment``,

@@ -43,7 +43,8 @@ after another).  The inference helpers score suffix data in O(T): the E
 step from the raw batch (K10), the (C, n) log-likelihoods through K5's
 Φ on the card.  The masked-filter route (any per-coordinate
 missingness, any T) runs one masked Kalman filter pass per E step (K7)
-and the plain-torch masked M step.  The dense route
+and one masked M step through K15 on the batch in place (the masked
+pool's M step for R restarts stays plain torch).  The dense route
 evaluates every instance's masked joint Gaussian: ``train_em`` (the
 log-likelihoods from K12 on the card, one grouped log-density per cluster
 on the CPU; time-batched statistics in plain torch, or K15 under
@@ -1079,15 +1080,12 @@ def mstep(
     initial moments from the finite first states, the transition and
     measurement regressions over every finite pair.  ``impl="xla"`` takes
     the time-batched statistics, ``impl="gram"`` their one-Gram form,
-    ``impl="pallas"`` kernel K15 on the packed joint batch with π from
-    :func:`counts_from_assign` (``em.py:943-965``); equal in float64."""
+    ``impl="pallas"`` kernel K15 on ``z`` and ``x`` in place (never
+    packed; ``msk.mstep_stats_zx``) with π from :func:`counts_from_assign`
+    (``em.py:943-965``); equal in float64."""
     if impl == "pallas":
-        T, n, d = z.shape
-        l = x.shape[-1]
-        stats = msk.mstep_stats_pallas(
-            pack_joint(z, x), assign.to(torch.int32).contiguous(), T=T, d=d, l=l,
-            n_clusters=n_clusters,
-        )
+        n, d, l = z.shape[1], z.shape[2], x.shape[2]
+        stats = msk.mstep_stats_zx(z, x, assign.to(torch.int32).contiguous(), n_clusters=n_clusters)
         tstats, mstats, istats = msk.unpack_mstep_stats(stats, d, l, n_clusters)
         pi = counts_from_assign(assign, n_clusters).to(z.dtype) / n
         m0, S0 = rops.mean_cov_from_stats(istats)
@@ -1382,9 +1380,13 @@ def train_em_masked_kalman(
     step (``em.py:1329``): ``(params, assign, iterations, status)``.  The
     batch is packed and planned for K7 once per fit; each iteration is
     one K7 pass, the assignment, counts and switches, one status read, and
-    the masked M step :func:`mstep` (plain torch).  The status protocol is
-    :func:`train_em`'s; on suffix missingness the trajectory is
-    :func:`train_em`'s too (the filter marginal is the joint marginal)."""
+    the masked M step :func:`mstep` through kernel K15 on ``z`` and ``x``
+    in place (``impl="pallas"``: one launch an M step, the initial one
+    included; its plain version on the CPU).  JAX's trainer takes the
+    einsum form; the two are equal in float64, and K15 sums in its own
+    order, in float64.  The status protocol is :func:`train_em`'s; on
+    suffix missingness the trajectory is :func:`train_em`'s too (the
+    filter marginal is the joint marginal)."""
     C = params0.pi.shape[0]
     if packed is None:
         packed = kk.plan_masked_batch(z, x)
@@ -1393,7 +1395,7 @@ def train_em_masked_kalman(
         return _hard_estep(params.pi, _filter_logliks(params, packed), prev, C)
 
     def mstep_fn(a):
-        return mstep(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
+        return mstep(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha, impl="pallas")
 
     return _dense_loop(
         params0, assign0, C, estep_fn, mstep_fn, n_steps=n_steps, min_members=min_members

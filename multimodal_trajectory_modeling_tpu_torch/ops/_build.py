@@ -78,9 +78,9 @@ _SIGNATURES = {
     "mtm_estep_logliks": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _P,
     ],
-    "mtm_mstep_stats_tile": [_I, _I, _I, _I, _I, _I],
+    "mtm_mstep_stats_plan": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _LL, _P],
     "mtm_mstep_stats": [
-        _I, _I, _P, _P, _P, _P, _P, _P, _P, _LL, _LL, _I, _I, _I, _I, _I, _I, _P,
+        _I, _I, _P, _P, _LL, _LL, _P, _LL, _LL, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P,
     ],
     "mtm_mstep_gram_part": [_I],
     "mtm_mstep_gram_plan": [_I, _P, _P, _P, _P, _I, _I, _I, _I, _P],

@@ -5,12 +5,16 @@ K15 ``mstep_stats_pallas`` (:142) → ``csrc/mstep_stats.cu``,
 ``unpack_mstep_stats`` (:379), and K9 ``mstep_stats_gram_sorted`` (:247)
 → ``csrc/mstep_gram.cu``.
 
-K15 takes the packed joint batch in any row order and sums, per cluster,
-the Khatri-Rao statistics of ``em.mstep``: the transition pairs
+K15 takes the packed joint batch (:func:`mstep_stats_pallas`) or the
+states and observations as ``(T, n, ·)`` tensors (:func:`mstep_stats_zx`,
+the masked M step's form), rows in any order, and sums, per cluster, the
+Khatri-Rao statistics of ``em.mstep``: the transition pairs
 ``U = [z_t, z_{t+1}, 1]`` (t < T−1), the measurement pairs
 ``U = [z_t, x_t, 1]`` and the first state ``U = [z_1, 1]``, each step
 counted where every coordinate of its pair is finite, as ``Σ U Uᵀ`` in
-the JAX layout ``(u, C·u)``.
+the JAX layout ``(u, C·u)``.  On the card both forms are one kernel that
+reads the batch in place by strides (the packed batch through views) and
+sums in float64, each output rounded once to the input type.
 
 K9 takes a batch sorted by pattern.  With ``U = [v(NaN→0), 1]``
 (``u = D + 1``), it sums per segment p and cluster c the Gram
@@ -53,6 +57,8 @@ __all__ = [
     "mstep_stats_gram_sorted_plain",
     "mstep_stats_pallas",
     "mstep_stats_pallas_plain",
+    "mstep_stats_zx",
+    "mstep_stats_zx_plain",
     "unpack_mstep_stats",
 ]
 
@@ -63,8 +69,6 @@ _KINDS = {torch.float32: 0, torch.float64: 1}
 _CHUNK = 1024
 _PIECE_ROWS = 1024
 _PART_BYTES = 512 * 2**20
-# K15's blocks: four on each of the H100's 132 multiprocessors
-_STATS_BLOCKS = 528
 
 
 def _check_args(v, assign, patterns, sizes, T, d, l):
@@ -439,29 +443,98 @@ def mstep_stats_pallas_plain(v, assign, *, T, d, l, n_clusters):
 
 
 @functools.lru_cache(maxsize=16)
-def _stats_entries(T: int, d: int, l: int, device: torch.device) -> torch.Tensor:
-    """K15's entry table ``(E, 9)`` int32, one row per upper-triangle entry
-    (j ≤ k) of the three sets: the offset and stride (per step) in a
-    packed row of each factor (offset D, stride 0: the ones column), the
-    steps, the finiteness rule (0 transition, 1 measurement, 2 first
-    state), the set and (j, k)."""
-    D = T * (d + l)
-
-    def factor(rule, j):
-        if rule == 0:  # [z_t, z_{t+1}, 1]: z_{t+1}[j − d] sits at t·d + j
-            return (j, d) if j < 2 * d else (D, 0)
-        if rule == 1:  # [z_t, x_t, 1]
-            if j < d:
-                return (j, d)
-            return (T * d + j - d, l) if j < d + l else (D, 0)
-        return (j, d) if j < d else (D, 0)  # [z_1, 1]
-
-    rows = []
-    for rule, (u, steps) in enumerate(zip(_stats_widths(d, l), (T - 1, T, 1))):
-        for j in range(u):
-            for k in range(j, u):
-                rows.append((*factor(rule, j), *factor(rule, k), steps, rule, rule, j, k))
+def _stats_entries(d: int, l: int, device: torch.device) -> torch.Tensor:
+    """K15's entry table ``(E, 3)`` int32, one row per upper-triangle entry
+    (j ≤ k, row by row) of the three sets in turn: the set (0 transition,
+    1 measurement, 2 first state), j and k."""
+    rows = [
+        (s, j, k) for s, u in enumerate(_stats_widths(d, l)) for j in range(u) for k in range(j, u)
+    ]
     return torch.tensor(rows, dtype=torch.int32, device=device)
+
+
+# K15's bodies: "auto" the fast body where d and l have one ((5, 3), (2, 4),
+# (2, 3)), else the general body, which takes any d and l
+_BODIES = {"auto": -1, "fast": 0, "general": 1}
+
+
+def _time_major(a: torch.Tensor) -> bool:
+    """Whether a ``(T, n, w)`` view holds each step's rows contiguous."""
+    return a.stride(1) == a.shape[2] or a.shape[1] == 1
+
+
+def _stats_layout(a: torch.Tensor) -> torch.Tensor:
+    """``a (T, n, w)`` as the kernel reads it (unit inner stride, each
+    step's rows contiguous or each row's steps contiguous), copied only
+    where it is neither."""
+    T, n, w = a.shape
+    if a.stride(2) == 1 and (_time_major(a) or a.stride(0) == w or T == 1):
+        return a
+    return a.contiguous()
+
+
+@functools.lru_cache(maxsize=64)
+def _stats_plan(device: int, kind: int, body: int, z_tmaj: bool, x_tmaj: bool, T: int, d: int, l: int,
+                C: int, n: int) -> tuple:
+    """K15's plan (``mtm_mstep_stats_plan``): ``(body, threads, steps a
+    chunk, clusters a group, blocks, shared memory)``, as an int32 array
+    on the host and its values."""
+    import ctypes
+
+    plan = (ctypes.c_int * 6)()
+    rc = _build.library().mtm_mstep_stats_plan(
+        device, kind, body, int(z_tmaj), int(x_tmaj), T, d, l, C, n, plan
+    )
+    if rc == -1:
+        raise _build.KernelArgumentError(
+            f"K15 has no plan for T={T}, d={d}, l={l}, C={C} "
+            f"({'the fast body has no such shape' if body == 0 else 'the statistics do not fit'})"
+        )
+    _build.check(rc, "mstep_stats plan")
+    return plan, tuple(plan)
+
+
+def _stats_kernel(z, x, assign, C, body="auto"):
+    """K15 on ``z (T, n, d)`` and ``x (T, n, l)`` CUDA views: the three
+    statistics, one launch of ``csrc/mstep_stats.cu`` (its body and its
+    reduce), counted in ``mstep_stats_pallas.launches``.  ``body`` (a key
+    of ``_BODIES``) forces a body, for tests and tools."""
+    if z.dtype not in _KINDS or x.dtype != z.dtype:
+        raise ValueError(f"z and x must both be float32 or float64, got {z.dtype} and {x.dtype}")
+    if assign.dtype != torch.int32:
+        raise ValueError(f"assign must be int32, got {assign.dtype}")
+    if not assign.is_contiguous():
+        raise ValueError("assign must be contiguous")
+    T, n, d = z.shape
+    l = x.shape[2]
+    if n == 0:
+        raise ValueError("empty batch")
+    z, x = _stats_layout(z), _stats_layout(x)
+    kind = _KINDS[z.dtype]
+    dev = _device_index(z)
+    plan, (_body, _threads, _ts, _cg, blocks, _smem) = _stats_plan(
+        dev, kind, _BODIES[body], _time_major(z), _time_major(x), T, d, l, C, n
+    )
+    entries = _stats_entries(d, l, z.device)
+    part = torch.empty(blocks * C * entries.shape[0], dtype=torch.float64, device=z.device)
+    outs = tuple(torch.empty((u, C * u), dtype=z.dtype, device=z.device) for u in _stats_widths(d, l))
+    rc = _build.library().mtm_mstep_stats(
+        dev, kind, plan, z.data_ptr(), z.stride(0), z.stride(1), x.data_ptr(), x.stride(0), x.stride(1),
+        assign.data_ptr(), entries.data_ptr(), part.data_ptr(), *(o.data_ptr() for o in outs),
+        n, T, d, l, C, torch.cuda.current_stream(z.device).cuda_stream,
+    )
+    _build.check(rc, "mstep_stats_pallas")
+    mstep_stats_pallas.launches += 1
+    return outs
+
+
+def _joint_views(v, T, d, l):
+    """The states and observations of the packed joint batch as ``(T, n,
+    d)`` and ``(T, n, l)`` views (no copy)."""
+    n = v.shape[0]
+    z = v[:, : T * d].view(n, T, d).transpose(0, 1)
+    x = v[:, T * d :].view(n, T, l).transpose(0, 1)
+    return z, x
 
 
 def mstep_stats_pallas(
@@ -476,8 +549,9 @@ def mstep_stats_pallas(
     """K15: the per-cluster statistics of the packed batch, ``(S_trans
     (u_t, C·u_t), S_meas (u_m, C·u_m), S_init (u_i, C·u_i))`` with
     ``u = 2d+1, d+l+1, d+1`` (``pallas_mstep.py:142``).  CUDA tensors
-    launch ``csrc/mstep_stats.cu`` (float32 or float64 ``v``, int32
-    ``assign``, both contiguous); CPU tensors take the plain version."""
+    launch ``csrc/mstep_stats.cu`` on views of ``v`` (float32 or float64
+    ``v``, int32 ``assign``, both contiguous); CPU tensors take the plain
+    version."""
     _check_stats_args(v, assign, T, d, l)
     if v.device.type == "cpu":
         return mstep_stats_pallas_plain(v, assign, T=T, d=d, l=l, n_clusters=n_clusters)
@@ -485,35 +559,53 @@ def mstep_stats_pallas(
         raise ValueError(f"unsupported device {v.device}")
     if v.dtype not in _KINDS:
         raise ValueError(f"v must be float32 or float64, got {v.dtype}")
-    if assign.dtype != torch.int32:
-        raise ValueError(f"assign must be int32, got {assign.dtype}")
-    if not (v.is_contiguous() and assign.is_contiguous()):
-        raise ValueError("v and assign must be contiguous")
-    n = v.shape[0]
-    if n == 0:
-        raise ValueError("empty batch")
-    C = n_clusters
-    lib = _build.library()
-    kind = _KINDS[v.dtype]
-    entries = _stats_entries(T, d, l, v.device)
-    E = entries.shape[0]
-    if lib.mtm_mstep_stats_tile(kind, T, d, l, C, E) <= 0:
-        raise ValueError(f"C={C}, T={T}, d={d}, l={l}: the statistics do not fit the kernel's shared memory")
-    per_block = -(-n // min(_STATS_BLOCKS, n))
-    blocks = -(-n // per_block)
-    part = torch.empty((blocks, C, E), dtype=v.dtype, device=v.device)
-    outs = tuple(torch.empty((u, C * u), dtype=v.dtype, device=v.device) for u in _stats_widths(d, l))
-    rc = lib.mtm_mstep_stats(
-        _device_index(v), kind, v.data_ptr(), assign.data_ptr(), entries.data_ptr(),
-        part.data_ptr(), *(o.data_ptr() for o in outs), n, per_block, blocks, T, d, l, C, E,
-        torch.cuda.current_stream(v.device).cuda_stream,
-    )
-    _build.check(rc, "mstep_stats_pallas")
-    mstep_stats_pallas.launches += 1
-    return outs
+    if not v.is_contiguous():
+        raise ValueError("v must be contiguous")
+    return _stats_kernel(*_joint_views(v, T, d, l), assign, n_clusters)
 
 
 mstep_stats_pallas.launches = 0
+
+
+def _check_zx_args(z, x, assign):
+    if z.ndim != 3 or x.ndim != 3 or z.shape[:2] != x.shape[:2]:
+        raise ValueError(f"z (T, n, d) and x (T, n, l) do not fit: {tuple(z.shape)}, {tuple(x.shape)}")
+    if assign.shape != (z.shape[1],):
+        raise ValueError(f"assign must be ({z.shape[1]},), got {tuple(assign.shape)}")
+    if not (z.device == x.device == assign.device):
+        raise ValueError("z, x and assign must be on one device")
+
+
+def mstep_stats_zx_plain(z, x, assign, *, n_clusters):
+    """Plain torch version of :func:`mstep_stats_zx`: the packed batch's
+    :func:`mstep_stats_pallas_plain`."""
+    _check_zx_args(z, x, assign)
+    T, n, d = z.shape
+    v = torch.cat([z.permute(1, 0, 2).reshape(n, -1), x.permute(1, 0, 2).reshape(n, -1)], dim=1)
+    return mstep_stats_pallas_plain(v, assign, T=T, d=d, l=x.shape[2], n_clusters=n_clusters)
+
+
+def mstep_stats_zx(
+    z: torch.Tensor,  # (T, n, d) states, any strides with a unit inner one
+    x: torch.Tensor,  # (T, n, l) observations
+    assign: torch.Tensor,  # (n,) int32; outside [0, C) counts nowhere
+    *,
+    n_clusters: int,
+):
+    """K15 on the states and observations as the masked trainer holds them:
+    :func:`mstep_stats_pallas`'s statistics of ``pack_joint(z, x)``, the
+    batch read in place by strides (never packed).  CUDA tensors launch
+    ``csrc/mstep_stats.cu`` (float32 or float64, int32 contiguous
+    ``assign``; the fast body where d and l have one, else the general
+    body), counted in ``mstep_stats_pallas.launches``; CPU tensors take the
+    plain version.  The strided and the packed forms of one batch give the
+    same bits."""
+    _check_zx_args(z, x, assign)
+    if z.device.type == "cpu":
+        return mstep_stats_zx_plain(z, x, assign, n_clusters=n_clusters)
+    if z.device.type != "cuda":
+        raise ValueError(f"unsupported device {z.device}")
+    return _stats_kernel(z, x, assign, n_clusters)
 
 
 def unpack_mstep_stats(stats, d: int, l: int, n_clusters: int):

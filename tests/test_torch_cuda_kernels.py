@@ -61,7 +61,10 @@ log-likelihoods) agree with their plain versions to 1e-4·(1 + |ll|)
 form's sums; K13 equals K12's columns in sorted order bit for bit (one
 body); K14 (K8 on the row-major batch) equals K8 bit for bit.  K15 (the
 Khatri-Rao statistics) agrees with its plain version to 1e-4 (float32)
-or 1e-11 (float64) of the same sums over |v|.  The dense quadratic
+or 1e-11 (float64) of the same sums over |v| on the packed batch, and on
+the masked trainer's (T, n, ·) tensors, in both its bodies, to 1e-6
+(float32: float64 sums, each output rounded once) or 1e-11; its strided
+and packed forms give the same bits.  The dense quadratic
 forms' edges (``_QUAD_CASES``: D = 8, 25, 120 and 512, C = 1 and 32, one-row
 segments, a ragged n, |x| ~ 50, NaN and Inf means, a failed
 factorization, rows with no finite value, a float32 overflow), in both
@@ -1318,6 +1321,146 @@ def test_mstep_stats_kernel_matches_plain(cuda, T, n, dtype, rel):
         assert torch.equal(x1, x2)
 
 
+def _zx_inputs(cuda, T, n, d, l, C, seed, p=0.05):
+    """States and observations ``(T, n, ·)`` on the card in float64, every
+    coordinate missing with probability p and trajectories cut at random
+    lengths, |x| up to ~50, and an assignment with rows outside [0, C)."""
+    rng = np.random.default_rng(seed)
+    z = rng.normal(size=(T, n, d)) * rng.uniform(0.5, 20.0, size=(1, n, 1))
+    x = rng.normal(size=(T, n, l)) * 10.0
+    z[rng.uniform(size=z.shape) < p] = np.nan
+    x[rng.uniform(size=x.shape) < p] = np.nan
+    past = np.arange(T)[:, None] >= rng.integers(1, T + 1, size=n)[None, :]
+    z[past] = np.nan
+    x[past] = np.nan
+    a = rng.integers(0, C, size=n).astype(np.int32)
+    a[::101] = C
+    a[7::103] = -1
+    return torch.tensor(z, device=cuda), torch.tensor(x, device=cuda), torch.tensor(a, device=cuda)
+
+
+def _assert_stats_close(got, z, x, a, C, dtype, rel):
+    """K15's statistics within ``rel`` of the plain version's float64 sums
+    over |z|, |x| (float32: each output rounded once from a float64 sum)."""
+    want = msk.mstep_stats_zx_plain(z.double(), x.double(), a, n_clusters=C)
+    mag = msk.mstep_stats_zx_plain(z.double().abs(), x.double().abs(), a, n_clusters=C)
+    for g, w, m in zip(got, want, mag):
+        assert g.dtype == dtype and g.shape == w.shape
+        assert bool(((g.double() - w).abs() <= rel * m + 1e-30).all())
+
+
+_ZX_RELS = [(torch.float32, 1e-6), (torch.float64, 1e-11)]
+
+
+def _zx(z, x, a, C, body):
+    """K15 through its wrapper ("auto": the body the shape takes) or with
+    the general body forced (the private ``_stats_kernel``)."""
+    if body == "auto":
+        return msk.mstep_stats_zx(z, x, a, n_clusters=C)
+    return msk._stats_kernel(z, x, a, C, body)
+
+
+@pytest.mark.parametrize("T", [10, 110, 128])
+@pytest.mark.parametrize("n", [1037, 40037])
+@pytest.mark.parametrize("d,l", [(5, 3), (2, 4), (2, 3), (3, 2)])
+@pytest.mark.parametrize("body", ["auto", "general"])
+@pytest.mark.parametrize("dtype,rel", _ZX_RELS)
+def test_mstep_stats_zx_kernel_matches_plain(cuda, T, n, d, l, body, dtype, rel):
+    """K15 on the (T, n, ·) tensors the masked trainer holds, both bodies
+    ((3, 2) has no fast body: "auto" takes the general one), at the route's
+    T (10, and 110 and 128 in chunks of steps), one tile a block and many;
+    two calls bit-identical, one launch each."""
+    C = 16 if n > 2000 else 3
+    z, x, a = _zx_inputs(cuda, T, n, d, l, C, seed=T + n + d)
+    z, x = z.to(dtype), x.to(dtype)
+    before = msk.mstep_stats_pallas.launches
+    got = _zx(z, x, a, C, body)
+    assert msk.mstep_stats_pallas.launches == before + 1
+    _assert_stats_close(got, z, x, a, C, dtype, rel)
+    for x1, x2 in zip(got, _zx(z, x, a, C, body)):
+        assert torch.equal(x1, x2)
+
+
+@pytest.mark.parametrize("C", [1, 3, 16, 300])
+@pytest.mark.parametrize("body", ["auto", "general"])
+@pytest.mark.parametrize("dtype,rel", _ZX_RELS)
+def test_mstep_stats_zx_clusters(cuda, C, body, dtype, rel):
+    """One cluster, a few, the bench's 16, and 300, whose tables need the
+    clusters in groups: each group reads the batch again."""
+    z, x, a = _zx_inputs(cuda, 10, 30011, 5, 3, C, seed=C)
+    z, x = z.to(dtype), x.to(dtype)
+    got = _zx(z, x, a, C, body)
+    _assert_stats_close(got, z, x, a, C, dtype, rel)
+    if C == 300:
+        plan = msk._stats_plan(z.device.index or 0, msk._KINDS[dtype], msk._BODIES[body], True, True,
+                               10, 5, 3, C, z.shape[1])[1]
+        assert plan[3] < C  # clusters a group
+
+
+@pytest.mark.parametrize("body", ["auto", "general"])
+def test_mstep_stats_zx_one_cluster_and_no_cluster(cuda, body):
+    """Every row in one cluster (its table takes every row, the others stay
+    zero), and every row outside [0, C) (every statistic zero)."""
+    z, x, _a = _zx_inputs(cuda, 10, 20000, 5, 3, 4, seed=5)
+    for fill in (2, 4, -1):
+        a = torch.full((z.shape[1],), fill, dtype=torch.int32, device=cuda)
+        got = _zx(z, x, a, 4, body)
+        _assert_stats_close(got, z, x, a, 4, torch.float64, 1e-11)
+        for g, u in zip(got, msk._stats_widths(5, 3)):
+            blocks = g.reshape(u, 4, u)
+            for c in range(4):
+                assert bool((blocks[:, c] == 0).all()) == (c != fill)
+
+
+@pytest.mark.parametrize("T", [1, 10, 128])
+@pytest.mark.parametrize("body", ["auto", "general"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_mstep_stats_strided_equals_packed(cuda, T, body, dtype):
+    """The (T, n, ·) tensors, the packed batch's views and a layout that
+    needs a copy give the same bits (one plan, one summation order)."""
+    z, x, a = _zx_inputs(cuda, T, 9001, 5, 3, 16, seed=T)
+    z, x = z.to(dtype), x.to(dtype)
+    n = z.shape[1]
+    v = torch.cat([z.permute(1, 0, 2).reshape(n, -1), x.permute(1, 0, 2).reshape(n, -1)], 1).contiguous()
+    got = _zx(z, x, a, 16, body)
+    zv, xv = msk._joint_views(v, T, 5, 3)
+    odd = z.transpose(1, 2).contiguous().transpose(1, 2)
+    for other in (_zx(zv, xv, a, 16, body), _zx(odd, x, a, 16, body)):
+        for g, o in zip(got, other):
+            assert torch.equal(g, o)
+    if body == "auto":
+        for g, o in zip(got, msk.mstep_stats_pallas(v, a, T=T, d=5, l=3, n_clusters=16)):
+            assert torch.equal(g, o)
+
+
+def test_train_em_masked_kalman_launches_k15(cuda):
+    """The masked fit on the card in float64: K7 per E step, K15 per M step
+    (the initial one included), the CPU fit's iterations, status and
+    assignment."""
+    rng = np.random.default_rng(16)
+    T, n, d, l, C = 8, 3000, 5, 3, 2
+    labels = np.arange(n) % C
+    z = rng.normal(size=(T, n, d)) + 3.0 * labels[None, :, None]
+    x = rng.normal(size=(T, n, l))
+    z[rng.uniform(size=z.shape) < 0.05] = np.nan
+    x[rng.uniform(size=x.shape) < 0.05] = np.nan
+    eye = lambda k: np.stack([np.eye(k)] * C)  # noqa: E731
+    p0 = (np.full(C, 0.5), rng.normal(size=(C, d)), eye(d), 0.3 * eye(d), eye(d), rng.normal(size=(C, d, l)), eye(l))
+    a0 = np.where(rng.uniform(size=n) < 0.3, 1 - labels, labels)
+    fits = {}
+    for dev in ("cpu", cuda):
+        k7, k15 = kk.kalman_masked_logliks_packed.launches, msk.mstep_stats_pallas.launches
+        fits[str(dev)] = tem.train_em_masked_kalman(
+            tem.mixture_params_from_numpy(p0, device=dev, dtype=torch.float64), torch.tensor(a0, device=dev),
+            torch.tensor(z, device=dev), torch.tensor(x, device=dev), n_steps=50)
+        launches = (kk.kalman_masked_logliks_packed.launches - k7, msk.mstep_stats_pallas.launches - k15)
+    _p, a_g, iters, status = fits[str(cuda)]
+    assert launches == (iters, 1 + iters - (status != tem.STATUS_RUNNING))
+    _pc, a_c, iters_c, status_c = fits["cpu"]
+    assert (iters, status) == (iters_c, status_c) and status == tem.STATUS_CONVERGED
+    assert torch.equal(a_g.cpu(), a_c)
+
+
 def _one_step_inputs(cuda, n):
     rng = np.random.default_rng(1)
     v = rng.normal(size=(n, 8))
@@ -1358,8 +1501,13 @@ def test_new_dense_kernels_refuse_bad_arguments(cuda):
         msk.mstep_stats_pallas(v, assign.long(), **kw)
     with pytest.raises(ValueError, match="T·"):
         msk.mstep_stats_pallas(v, assign, T=10, d=4, l=3, n_clusters=16)
-    with pytest.raises(ValueError, match="shared memory"):
-        msk.mstep_stats_pallas(v, assign, T=10, d=5, l=3, n_clusters=4096)
+    z, x = msk._joint_views(v, 10, 5, 3)
+    with pytest.raises(ValueError, match="no plan"):  # no fast body at d=4
+        msk._stats_kernel(z[..., :4], x, assign, 16, "fast")
+    with pytest.raises(ValueError, match="float32 or float64"):
+        msk.mstep_stats_zx(z, x.float(), assign, n_clusters=16)
+    with pytest.raises(ValueError, match="assign must be"):
+        msk.mstep_stats_zx(z, x, assign[1:], n_clusters=16)
 
 
 def test_train_em_sorted_cuda_f64_matches_cpu(cuda):
