@@ -1,8 +1,8 @@
 // The ACC-row table of the compact Φ (ops/markov_kernels.py:
 // markov_compact_spec and _acc_row_table) computed at compile time for a
 // fixed (d, l), so that a kernel can build each row of Φ with its shift,
-// row and kind as constants: float32 K4a's step-outer row build
-// (markov_em_packed_one.cu) keeps a step's values of u in registers and
+// row and kind as constants: the step-outer row build of float32 K4a and
+// K2 (markov_step_rows.cuh) keeps a step's values of u in registers and
 // adds every row's product for that step from them.
 //
 // Plain C++17 (no device intrinsics): tests/test_torch_packed_body.py

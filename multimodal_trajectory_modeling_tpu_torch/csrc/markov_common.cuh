@@ -9,8 +9,10 @@
 // and score them there, so Φ never reaches device memory; float32 K4b
 // (markov_em_packed_mma.cu) and float32 K4a (markov_em_packed_one.cu)
 // build them from a u tile in shared memory with the same terms in the
-// same order (markov_packed_tile.cuh:acc_row_tile; float32 K4a's bench
-// shape a step at a time from registers).
+// same order (markov_packed_tile.cuh:acc_row_tile), and float32 K2 stores
+// them from such a tile straight to Φ; float32 K2 and K4a build the
+// shapes with a compile-time table a step at a time from registers
+// (markov_step_rows.cuh).
 
 #pragma once
 

@@ -41,7 +41,8 @@
 //   owning Φ rows f ≡ p (mod q).  For the bench shape (d, l) = (5, 3) the
 //   rows' kinds, shifts and rows are compile-time constants
 //   (markov_acc_table.cuh), so a thread keeps a step's s values
-//   and the next step's in registers, loads each once from the staged
+//   and the next step's in registers (markov_step_rows.cuh, shared with
+//   K2), loads each once from the staged
 //   tile (conflict-free: neighbouring instances, neighbouring banks), and
 //   adds every one of its rows' products for that step into a register:
 //   each row is still summed over t in increasing order with acc_row's
@@ -81,12 +82,15 @@
 
 #include <utility>
 
-#include "markov_acc_table.cuh"
 #include "markov_common.cuh"
 #include "markov_packed_tile.cuh"
+#include "markov_step_rows.cuh"
 
 namespace {
 
+using mtm::cp_async_commit;
+using mtm::cp_async_wait;
+using mtm::Fixed;
 using mtm::fused_ma;
 using mtm::is_nan;
 
@@ -97,137 +101,6 @@ constexpr int kMaxRing = 2;
 // threads an instance: the bench shape's 111 rows in four parts of 27-28
 // (any other shape's rows in the plan's q parts)
 constexpr int kQ53 = 4;
-
-// The compile-time table of a fixed (d, l); its entries are read only in
-// constant expressions, through these functions.
-template <int D, int L>
-struct Fixed {
-  static constexpr int S = 8 * ((D + L + 7) / 8);
-  static constexpr mtm::AccTable kTable = mtm::make_acc_table(D, L);
-  __host__ __device__ static constexpr int fc() { return kTable.fc; }
-  __host__ __device__ static constexpr int kind(int f) { return kTable.kind[f]; }
-  __host__ __device__ static constexpr int shift(int f) { return kTable.k[f]; }
-  __host__ __device__ static constexpr int row(int f) { return kTable.r[f]; }
-};
-
-// Part P of Q of an instance's rows (f = P, P + Q, ...) in registers: each
-// row's value before step 0 (F0 and U0 rows take theirs from step 0
-// alone), its term at each step t (none past the masks of acc_row), and
-// its entry of the Φ column.
-template <class Sh, int Q, int P>
-struct Part {
-  static constexpr int S = Sh::S;
-  static constexpr int NR = Sh::fc() > P ? (Sh::fc() - P + Q - 1) / Q : 0;
-  using Rows = std::make_integer_sequence<int, NR>;
-  float acc[NR > 0 ? NR : 1];
-
-  template <int M>
-  __device__ __forceinline__ void init(const float (&cur)[S]) {
-    constexpr int f = P + M * Q, kind = Sh::kind(f), k = Sh::shift(f), r = Sh::row(f);
-    if constexpr (kind == mtm::ROW_F0) {
-      static_assert(r + k < S, "an F0 row reads one step");
-      acc[M] = cur[r] * cur[r + k];
-    } else if constexpr (kind == mtm::ROW_U0) {
-      acc[M] = cur[r];
-    } else {
-      acc[M] = 0.f;
-    }
-  }
-  // step t's term: `more` is t + 1 < T (A rows past the step read the
-  // next one, none at the last), `on` is t + 1 < len (B and AVM rows)
-  template <int M>
-  __device__ __forceinline__ void step(const float (&cur)[S], const float (&nxt)[S], bool more, bool on) {
-    constexpr int f = P + M * Q, kind = Sh::kind(f), k = Sh::shift(f), r = Sh::row(f);
-    if constexpr (kind == mtm::ROW_A) {
-      static_assert(r + k < 2 * S, "an A row reads two steps");
-      if constexpr (r + k < S)
-        acc[M] += cur[r] * cur[r + k];
-      else if (more)
-        acc[M] += cur[r] * nxt[r + k - S];
-    } else if constexpr (kind == mtm::ROW_B) {
-      static_assert(r + k < S, "a B row reads one step");
-      if (on) acc[M] += cur[r] * cur[r + k];
-    } else if constexpr (kind == mtm::ROW_AID) {
-      acc[M] += cur[r];
-    } else if constexpr (kind == mtm::ROW_AVM) {
-      if (on) acc[M] += cur[r];
-    }
-  }
-  template <int M>
-  __device__ __forceinline__ void put(float* col, int pitch, int len) const {
-    constexpr int f = P + M * Q, kind = Sh::kind(f);
-    float v = acc[M];
-    if constexpr (kind == mtm::ROW_LEN) v = float(len);
-    if constexpr (kind == mtm::ROW_ONE) v = 1.f;
-    if constexpr (kind == mtm::ROW_ZERO) v = 0.f;
-    col[f * pitch] = v;
-  }
-  template <int... M>
-  __device__ __forceinline__ void init_all(std::integer_sequence<int, M...>, const float (&cur)[S]) {
-    (init<M>(cur), ...);
-  }
-  template <int... M>
-  __device__ __forceinline__ void step_all(std::integer_sequence<int, M...>, const float (&cur)[S],
-                                           const float (&nxt)[S], bool more, bool on) {
-    (step<M>(cur, nxt, more, on), ...);
-  }
-  template <int... M>
-  __device__ __forceinline__ void put_all(std::integer_sequence<int, M...>, float* col, int pitch, int len) const {
-    (put<M>(col, pitch, len), ...);
-  }
-};
-
-// Part P's rows of one instance, step-outer: `su` is the instance's column
-// of the staged u tile (element (row, j) at su[row · NT]), `col` its Φ
-// column (row f at col[f · pitch]).
-template <class Sh, int Q, int P>
-__device__ __forceinline__ void build_part(const float* su, int NT, int steps, int len, float* col, int pitch) {
-  using Pt = Part<Sh, Q, P>;
-  constexpr int S = Sh::S;
-  Pt pt;
-  float cur[S], nxt[S];
-#pragma unroll
-  for (int i = 0; i < S; ++i) {
-    cur[i] = su[i * NT];
-    nxt[i] = 0.f;
-  }
-  pt.init_all(typename Pt::Rows{}, cur);
-  for (int t = 0; t < steps; ++t) {
-    const bool more = t + 1 < steps;
-    if (more) {
-      const float* sn = su + (t + 1) * S * NT;
-#pragma unroll
-      for (int i = 0; i < S; ++i) nxt[i] = sn[i * NT];
-    }
-    pt.step_all(typename Pt::Rows{}, cur, nxt, more, t + 1 < len);
-#pragma unroll
-    for (int i = 0; i < S; ++i) cur[i] = nxt[i];
-  }
-  pt.put_all(typename Pt::Rows{}, col, pitch, len);
-}
-
-template <class Sh, int Q, int... P>
-__device__ __forceinline__ void build_fixed(std::integer_sequence<int, P...>, int part, const float* su, int NT,
-                                            int steps, int len, float* col, int pitch) {
-  ((part == P ? build_part<Sh, Q, P>(su, NT, steps, len, col, pitch) : void()), ...);
-}
-
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int bytes) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(bytes) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() { asm volatile("cp.async.commit_group;\n" ::: "memory"); }
-// Wait until at most `pending` (0 or 1) of this thread's groups are in flight.
-__device__ __forceinline__ void cp_async_wait(int pending) {
-  if (pending == 0)
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
-  else
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
-}
 
 // Shared memory of a block, in floats then ints: the u ring (ring, T·s,
 // NT), the weights (Fcp, CB) under argmax, the statistics (Fcp, CB + 1),
@@ -280,32 +153,7 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
   // tile `tile`'s u (Ts rows x NT) and lengths into ring slot `slot`,
   // zero past n; the caller commits the group
   auto issue = [&](int64_t tile, int slot) {
-    const int64_t i0 = tile * NT;
-    float* du = s_u + (size_t)slot * Ts * NT;
-    int* dl = s_len + slot * NT;
-    if (aligned) {
-      const int q4 = NT / 4, l4 = __ffs(q4) - 1;
-      for (int e = tid; e < (Ts + 1) * q4; e += nthreads) {
-        const int a = e >> l4, c4 = 4 * (e & (q4 - 1));
-        const int64_t i = i0 + c4;
-        const bool in = i < n;  // n % 4 == 0: four instances all in or all out
-        if (a < Ts)
-          cp_async16(du + a * NT + c4, in ? u + (int64_t)a * n + i : u, in ? 16 : 0);
-        else
-          cp_async16(dl + c4, in ? lens + i : lens, in ? 16 : 0);
-      }
-    } else {
-      const int lt = __ffs(NT) - 1;
-      for (int e = tid; e < (Ts + 1) * NT; e += nthreads) {
-        const int a = e >> lt, c = e & (NT - 1);
-        const int64_t i = i0 + c;
-        const bool in = i < n;
-        if (a < Ts)
-          cp_async4(du + a * NT + c, in ? u + (int64_t)a * n + i : u, in ? 4 : 0);
-        else
-          cp_async4(dl + c, in ? lens + i : lens, in ? 4 : 0);
-      }
-    }
+    mtm::stage_packed_tile(s_u + (size_t)slot * Ts * NT, s_len + slot * NT, u, lens, n, tile * NT, NT, Ts, aligned);
   };
 
   // the tile in ring slot `slot` into s_phi: part p's rows of instance j
@@ -314,7 +162,8 @@ __global__ void __launch_bounds__(kMaxThreads, 1)
     const int len = s_len[slot * NT + j];
     float* col = s_phi + j;
     if constexpr (SHAPE == 53) {
-      build_fixed<Fixed<5, 3>, kQ53>(std::make_integer_sequence<int, kQ53>{}, part, su, NT, steps, len, col, pitch);
+      auto sink = [=](int f, float v) { col[f * pitch] = v; };
+      mtm::build_fixed<Fixed<5, 3>, kQ53>(std::make_integer_sequence<int, kQ53>{}, part, su, NT, steps, len, sink);
     } else {
       for (int f = part; f < Fc; f += q) {
         const int d = s_desc[f];

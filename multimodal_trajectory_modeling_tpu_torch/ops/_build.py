@@ -45,6 +45,10 @@ _LL = ctypes.c_longlong
 # argtypes of every exported function: pointers and the stream as void*
 _SIGNATURES = {
     "mtm_markov_features": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "mtm_markov_features_staged": [
+        _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_markov_features_staged_config": [_I, _I, _I, _I, _I, _I, _I, _I, _I, _P],
     "mtm_markov_em": [
         _I, _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,
         _LL, _I, _I, _I, _I, _P,

@@ -7,7 +7,8 @@ NaN-padded batch at any T (K6, K10, K11).
 Counterpart of ``multimodal_trajectory_modeling_tpu/ops/pallas_markov.py``,
 whose Pallas TPU kernels become hand-written CUDA kernels:
 
-- K2 ``markov_materialize_features`` (:1314) → ``csrc/markov_features.cu``;
+- K2 ``markov_materialize_features`` (:1314) → ``csrc/markov_features.cu``
+  (float32 on its staged body, planned by :func:`k2_plan`);
 - K5 ``markov_materialize_features_longT`` (:1842) →
   ``csrc/markov_features_longT.cu``;
 - K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em_one.cu``
@@ -77,6 +78,8 @@ from multimodal_trajectory_modeling_tpu_torch.ops.row_plan import MaskedPlan, ma
 __all__ = [
     "K1Launch",
     "K1Plan",
+    "K2Launch",
+    "K2Plan",
     "PackedOnePlan",
     "PackedPlan",
     "PhiQuant",
@@ -85,6 +88,8 @@ __all__ = [
     "fold_weights",
     "k1_plan",
     "k1_smem",
+    "k2_plan",
+    "k2_smem",
     "markov_assign_suffix",
     "markov_assign_suffix_plain",
     "markov_em_fused",
@@ -429,6 +434,139 @@ def markov_materialize_features_plain(
     return phi
 
 
+# K2's staged float32 body (csrc/markov_features.cu): threads an
+# instance (the kernel's kQ, which the compile-time tables of (5, 3) and
+# (2, 4) are built for)
+_K2_Q = 4
+
+
+class K2Plan(NamedTuple):
+    """A block of K2's staged float32 body: ``nt`` instances a tile (128,
+    64 or 32), ``q`` threads an instance, a ring of ``ring`` staged u tiles
+    (2, or 1 where two do not fit), ``smem`` bytes of shared memory,
+    ``threads`` (nt · q) and the ``blocks_per_sm`` that shared memory
+    allows (the runtime's occupancy, :class:`K2Launch`, adds the
+    registers)."""
+
+    nt: int
+    q: int
+    ring: int
+    smem: int
+    threads: int
+    blocks_per_sm: int
+
+
+class K2Launch(NamedTuple):
+    """K2's staged launch on a device: its plan, then what the runtime
+    gives it: blocks an SM, SMs, registers and local (spill) bytes a
+    thread."""
+
+    nt: int
+    q: int
+    ring: int
+    smem: int
+    threads: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+
+def k2_smem(Fcp: int, Ts: int, nt: int, ring: int) -> int:
+    """Shared memory of a block of K2's staged body (``staged_smem`` in the
+    CUDA source): the u ring ``(ring, Ts, nt)`` in floats, the lengths
+    ``(ring, nt)`` and the row table ``(Fcp,)`` in ints."""
+    return 4 * (ring * Ts * nt + ring * nt + Fcp)
+
+
+@functools.lru_cache(maxsize=None)
+def k2_plan(T: int, d: int, l: int):
+    """The block of K2's staged float32 body for the packed batch of (T,
+    d, l), as a :class:`K2Plan`: four threads an instance; of the tiles
+    (128, 64, 32) and rings (2, 1) that fit 232 448 bytes, the most warps
+    an SM that shared memory allows (at most 16), then a ring of two, then
+    the widest tile.  At the bench shape: 128 instances, two slots of 40
+    KB, one block of 512 threads an SM by its registers, measured fastest
+    at n = 1e6 and 1e6 + 37 (``tools/k2_phase_split.py``).  None where no
+    block fits; the row-at-a-time body then takes the shape."""
+    Fcp = markov_compact_spec(T, d, l)[0]
+    Ts = T * 8 * ((d + l + 7) // 8)
+    q = _K2_Q
+    best = key = None
+    for nt in (128, 64, 32):
+        for ring in (2, 1):
+            smem = k2_smem(Fcp, Ts, nt, ring)
+            if smem > _MAX_SMEM:
+                continue
+            threads = nt * q
+            blocks = min(_SM_SMEM // (smem + 1024), 2048 // threads, 32)
+            k = (min(blocks * threads // 32, 16), ring > 1, nt)
+            if key is None or k > key:
+                best, key = K2Plan(nt, q, ring, smem, threads, blocks), k
+    return best
+
+
+@functools.lru_cache(maxsize=None)
+def _k2_config(device: int, T: int, d: int, l: int, table: bool):
+    """The :class:`K2Launch` of K2's staged body at this shape on
+    ``device`` (the plan, then the runtime's occupancy), or None where no
+    plan exists."""
+    plan = k2_plan(T, d, l)
+    if plan is None:
+        return None
+    Fcp, uniq, _pos = markov_compact_spec(T, d, l)
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = _build.library().mtm_markov_features_staged_config(
+            d, l, int(uniq.shape[0]), Fcp, T * 8 * ((d + l + 7) // 8), plan.nt, plan.q, plan.ring, int(table), out)
+    _build.check(rc, "markov_materialize_features (its launch)")
+    return K2Launch(*plan[:3], *out)
+
+
+def _k2_body(dtype, T: int, d: int, l: int) -> str:
+    """The body :func:`markov_materialize_features` launches: the staged
+    float32 body where :func:`k2_plan` fits a block, else the
+    row-at-a-time body."""
+    return "staged" if dtype == torch.float32 and k2_plan(T, d, l) is not None else "rows"
+
+
+def _features_kernel(u, lens, *, T: int, d: int, l: int, body: str):
+    """Launch K2 with ``body``: ``"rows"`` the row-at-a-time body (float32
+    or float64), ``"staged"`` the staged float32 body (the compile-time
+    table where one is compiled), ``"general"`` the staged body building
+    every row with ``acc_row_tile``.  Counted in
+    ``markov_materialize_features.launches``.  Tests and the tools force a
+    body here; :func:`markov_materialize_features` picks it from the dtype
+    and the shape."""
+    if body not in ("rows", "staged", "general"):
+        raise ValueError(f"unknown body {body!r}")
+    s = 8 * ((d + l + 7) // 8)
+    n = u.shape[1]
+    desc = _row_desc(T, d, l, u.device)
+    Fc = desc.shape[0]
+    Fc_pad = 8 * ((Fc + 7) // 8)  # markov_compact_spec's
+    phi = torch.empty((Fc_pad, n), dtype=u.dtype, device=u.device)
+    lib = _build.library()
+    stream = torch.cuda.current_stream(u.device).cuda_stream
+    if body == "rows":
+        rc = lib.mtm_markov_features(
+            _device_index(u), {torch.float32: 0, torch.float64: 1}[u.dtype], u.data_ptr(), lens.data_ptr(),
+            desc.data_ptr(), phi.data_ptr(), n, T, s, Fc, Fc_pad, stream)
+    else:
+        if u.dtype != torch.float32:
+            raise ValueError(f"the staged body takes float32, got {u.dtype}")
+        launch = _k2_config(_device_index(u), T, d, l, body == "staged")
+        if launch is None:
+            raise ValueError(f"no staged block fits (T, d, l) = ({T}, {d}, {l})")
+        grid = min(-(-n // launch.nt), launch.blocks_per_sm * launch.sms)
+        rc = lib.mtm_markov_features_staged(
+            _device_index(u), u.data_ptr(), lens.data_ptr(), desc.data_ptr(), phi.data_ptr(), n, T, d, l,
+            Fc, Fc_pad, launch.nt, launch.q, launch.ring, grid, int(body == "staged"), stream)
+    _build.check(rc, "markov_materialize_features")
+    markov_materialize_features.launches += 1
+    return phi
+
+
 def markov_materialize_features(
     u: torch.Tensor,  # (T·s, n) from pack_markov_u
     lens: torch.Tensor,  # (n,) int32
@@ -439,43 +577,24 @@ def markov_materialize_features(
 ) -> torch.Tensor:
     """K2: the per-instance Markov EM features Φ (Fc_pad, n) in the
     compact layout, in u's dtype; once per fit (``pallas_markov.py:1314``).
-    CUDA tensors launch ``csrc/markov_features.cu`` (float32 or float64,
-    contiguous u, int32 lens); CPU tensors take the plain version."""
-    s = _check_features_args(u, lens, T, d, l)
+    CUDA tensors launch ``csrc/markov_features.cu`` (contiguous u, int32
+    lens): float32 its staged body where :func:`k2_plan` fits a block,
+    float64 and any other shape the row-at-a-time body, the same Φ bit for
+    bit; CPU tensors take the plain version."""
+    _check_features_args(u, lens, T, d, l)
     if u.device.type == "cpu":
         return markov_materialize_features_plain(u, lens, T=T, d=d, l=l)
     if u.device.type != "cuda":
         raise ValueError(f"unsupported device {u.device}")
-    kinds = {torch.float32: 0, torch.float64: 1}
-    if u.dtype not in kinds:
+    if u.dtype not in (torch.float32, torch.float64):
         raise ValueError(f"u must be float32 or float64, got {u.dtype}")
     if lens.dtype != torch.int32:
         raise ValueError(f"lens must be int32, got {lens.dtype}")
     if not (u.is_contiguous() and lens.is_contiguous()):
         raise ValueError("u and lens must be contiguous")
-    n = u.shape[1]
-    if n == 0:
+    if u.shape[1] == 0:
         raise ValueError("empty batch")
-    Fc_pad, uniq, _pos = markov_compact_spec(T, d, l)
-    desc = _row_desc(T, d, l, u.device)
-    phi = torch.empty((Fc_pad, n), dtype=u.dtype, device=u.device)
-    rc = _build.library().mtm_markov_features(
-        _device_index(u),
-        kinds[u.dtype],
-        u.data_ptr(),
-        lens.data_ptr(),
-        desc.data_ptr(),
-        phi.data_ptr(),
-        n,
-        T,
-        s,
-        int(uniq.shape[0]),
-        Fc_pad,
-        torch.cuda.current_stream(u.device).cuda_stream,
-    )
-    _build.check(rc, "markov_materialize_features")
-    markov_materialize_features.launches += 1
-    return phi
+    return _features_kernel(u, lens, T=T, d=d, l=l, body=_k2_body(u.dtype, T, d, l))
 
 
 markov_materialize_features.launches = 0

@@ -8,7 +8,8 @@ machine does not have; this file imports only torch and numpy.)
 
 Tolerances: K2 differs from its plain version only in summation order and
 in summing the masked rows directly, so each row agrees to 1e-5 (float32)
-or 1e-12 (float64) of its absmax.  K1 under int16 Φ sums integers, so its
+or 1e-12 (float64) of its absmax; its staged float32 body gives the
+row-at-a-time body's Φ bit for bit (acc_row's terms in its order).  K1 under int16 Φ sums integers, so its
 statistics are exact; its float32 scores may flip an argmax only where the
 float64 top-2 gap is below 1e-4·(1 + |score|); its int16 body
 (``csrc/markov_em_one.cu``) equals the atomics body (``csrc/markov_em.cu``,
@@ -125,6 +126,114 @@ def test_materialize_kernel_matches_plain(cuda, T, d, l, n, dtype, rel):
     phi_p = mk.markov_materialize_features_plain(u, lens, T=T, d=d, l=l)
     bound = rel * phi_p.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
     assert bool(((phi_k - phi_p).abs() <= bound).all())
+
+
+# K2's staged float32 body (csrc/markov_features.cu) at its edges: n
+# around a tile (32, 64 or 128 instances by the plan) and a round of
+# persistent blocks, n % 4 != 0 (4-byte copies), lengths 0..T, |x| ~ 50,
+# the compile-time tables of (5, 3) and (2, 4), shapes without one (the
+# acc_row_tile build), a ring of one tile (T = 64), the tallest packed
+# batch (T·s = 512) and the smallest shape (d, l) = (1, 0)
+_K2_CASES = {
+    "n=1": (10, 5, 3, 1), "n=31": (10, 5, 3, 31), "n=32": (10, 5, 3, 32), "n=33": (10, 5, 3, 33),
+    "n=127": (10, 5, 3, 127), "n=128": (10, 5, 3, 128), "n=129": (10, 5, 3, 129), "n=1037": (10, 5, 3, 1037),
+    "n=20000": (10, 5, 3, 20000), "n=20037": (10, 5, 3, 20037), "n=rounds+5": (10, 5, 3, 3 * 32 * 8 * 132 + 5),
+    "adni": (10, 2, 4, 5003), "adni-aligned": (10, 2, 4, 20000), "no-table": (10, 3, 2, 5003),
+    "no-table-wide": (10, 6, 2, 2051), "ring1": (64, 5, 3, 3001), "Ts512": (32, 9, 4, 1500), "d1l0": (7, 1, 0, 777),
+}
+
+
+def _k2_batch(T, d, l, n, seed, dtype, device, scale=1.0):
+    """The packed batch with lengths 0..T (NaN past each), values N(0, 1)
+    times ``scale`` plus a per-coordinate offset of the same size."""
+    rng = np.random.default_rng(seed)
+    z = (rng.normal(size=(T, n, d)) + rng.normal(size=d)) * scale
+    x = (rng.normal(size=(T, n, l)) + rng.normal(size=l)) * scale
+    lens = rng.integers(0, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    z_t = torch.tensor(z.transpose(0, 2, 1).reshape(T * d, n), dtype=dtype, device=device)
+    x_t = torch.tensor(x.transpose(0, 2, 1).reshape(T * l, n), dtype=dtype, device=device)
+    return mk.pack_markov_u(z_t, x_t, T=T, d=d, l=l), torch.tensor(lens, device=device)
+
+
+@pytest.mark.parametrize("scale", [1.0, 50.0])
+@pytest.mark.parametrize("case", list(_K2_CASES))
+def test_k2_staged_body_is_the_rows_body(cuda, case, scale):
+    """Float32 K2: the staged body (the wrapper's choice) and its
+    acc_row_tile build at any shape ("general") give the row-at-a-time
+    body's Φ bit for bit, pad rows zero; two calls the same bits; one
+    launch counted a call."""
+    T, d, l, n = _K2_CASES[case]
+    u, lens = _k2_batch(T, d, l, n, 17, torch.float32, cuda, scale)
+    assert mk.k2_plan(T, d, l) is not None
+    before = mk.markov_materialize_features.launches
+    phi = mk.markov_materialize_features(u, lens, T=T, d=d, l=l)
+    assert mk.markov_materialize_features.launches == before + 1
+    rows = mk._features_kernel(u, lens, T=T, d=d, l=l, body="rows")
+    general = mk._features_kernel(u, lens, T=T, d=d, l=l, body="general")
+    again = mk.markov_materialize_features(u, lens, T=T, d=d, l=l)
+    bits = lambda p: p.view(torch.int32)  # noqa: E731
+    assert torch.equal(bits(phi), bits(rows)) and torch.equal(bits(general), bits(rows))
+    assert torch.equal(bits(again), bits(phi))
+    Fc = mk.markov_compact_spec(T, d, l)[1].shape[0]
+    assert bool((phi[Fc:] == 0).all())
+    if scale == 1.0:
+        plain = mk.markov_materialize_features_plain(u, lens, T=T, d=d, l=l)
+        bound = 1e-5 * plain.abs().amax(dim=1, keepdim=True).clamp_min(1.0)
+        assert bool(((phi - plain).abs() <= bound).all())
+
+
+@pytest.mark.parametrize("n", [20000, 20037, 20038])
+def test_k2_staged_body_on_unaligned_storage(cuda, n):
+    """u and lens one element into their storage (not 16-byte aligned: the
+    rows staged by 4-byte copies, the lengths too): the rows body's Φ bit
+    for bit."""
+    T, d, l = 10, 5, 3
+    u, lens = _k2_batch(T, d, l, n, 20, torch.float32, cuda)
+    u1 = torch.empty(u.numel() + 1, dtype=u.dtype, device=cuda)[1:].view(u.shape).copy_(u)
+    l1 = torch.empty(n + 1, dtype=lens.dtype, device=cuda)[1:].copy_(lens)
+    assert u1.data_ptr() % 16 and l1.data_ptr() % 16 and u1.is_contiguous()
+    got = mk.markov_materialize_features(u1, l1, T=T, d=d, l=l)
+    rows = mk._features_kernel(u, lens, T=T, d=d, l=l, body="rows")
+    assert torch.equal(got.view(torch.int32), rows.view(torch.int32))
+
+
+def test_k2_float64_stays_on_the_rows_body(cuda):
+    """Float64 K2 is the row-at-a-time body's Φ bit for bit; the staged
+    body refuses float64."""
+    T, d, l = 10, 5, 3
+    u, lens = _k2_batch(T, d, l, 20037, 18, torch.float64, cuda)
+    phi = mk.markov_materialize_features(u, lens, T=T, d=d, l=l)
+    rows = mk._features_kernel(u, lens, T=T, d=d, l=l, body="rows")
+    assert torch.equal(phi.view(torch.int64), rows.view(torch.int64))
+    with pytest.raises(ValueError):
+        mk._features_kernel(u, lens, T=T, d=d, l=l, body="staged")
+
+
+def test_k2_plan_matches_the_kernel(cuda):
+    """The host plan's shared memory is the CUDA source's, its launch fits
+    the card, and the fixed shapes' build spills nothing."""
+    for T, d, l in ((10, 5, 3), (10, 2, 4), (10, 3, 2), (64, 5, 3), (32, 9, 4), (7, 1, 0), (1, 8, 8)):
+        plan = mk.k2_plan(T, d, l)
+        for table in (True, False):
+            launch = mk._k2_config(cuda.index or 0, T, d, l, table)
+            assert launch.smem == plan.smem and launch.threads == plan.threads and launch.blocks_per_sm >= 1
+            if table and (d, l) in ((5, 3), (2, 4)):
+                assert launch.local_bytes == 0
+
+
+def test_k2_launches_after_a_smaller_plan_is_queried(cuda):
+    """The occupancy query of a plan with less shared memory does not lower
+    the limit a larger plan of the same body launches with."""
+    mk._k2_config.cache_clear()
+    big = (32, 9, 4)
+    u, lens = _k2_batch(*big, 1500, 19, torch.float32, cuda)
+    mk._k2_config(cuda.index or 0, *big, False)
+    mk._k2_config(cuda.index or 0, 1, 8, 8, False)
+    rows = mk._features_kernel(u, lens, T=32, d=9, l=4, body="rows")
+    got = mk._features_kernel(u, lens, T=32, d=9, l=4, body="general")
+    assert torch.equal(got.view(torch.int32), rows.view(torch.int32))
 
 
 def _em_inputs(cuda, C=16, n=20037, seed=1):
