@@ -1,6 +1,7 @@
 // The canonical Φ column of one instance, built from the transposed batch:
 // shared by K5 (markov_features_longT.cu), which reads the batch from
-// device memory and writes the column there, and K6/K10/K11
+// shared-memory stages (its global-memory body: from device memory, by
+// longT_rows below) and writes the column to Φ, and K6/K10/K11
 // (markov_em_batch.cu), which read it from shared-memory stages and build
 // the column into shared memory to score it there.  Both run the same
 // per-step arithmetic (the part structs below), so they hold the same Φ
@@ -25,10 +26,11 @@
 // takes no step still writes its t = 0 rows (+0).
 //
 // The rows are cut into three parts (z⊗z with its masked twin and the t=0
-// rows; z⊗zn with the z sums; x⊗x, z⊗x and the x sums), so that one thread
-// keeps at most d(d+1) running sums in registers (30 at d=5, the
-// symmetric products' upper triangles; one thread holding all 144 would
-// spill).  d and l are template parameters for the
+// rows; z⊗zn with the z sums; x⊗x, z⊗x and the x sums), so that a thread
+// that takes one part keeps at most d(d+1) running sums in registers (30
+// at d=5, the symmetric products' upper triangles); K5's float32 body at
+// the compiled (d, l) runs all three in one thread (89 sums at (5, 3),
+// within 168 registers).  d and l are template parameters for the
 // shapes of the repository's data, with one instantiation at kLongTMax = 8
 // for the rest; the loops run over a < d in order either way, so every
 // instantiation gives the same bits.

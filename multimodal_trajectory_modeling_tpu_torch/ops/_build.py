@@ -95,6 +95,10 @@ _SIGNATURES = {
     "mtm_masked_kalman": [_I, _I, _P, _P, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
     "mtm_markov_features_longT_max_dim": [],
     "mtm_markov_features_longT": [_I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _P],
+    "mtm_markov_features_longT_staged": [
+        _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
+    ],
+    "mtm_markov_features_longT_staged_config": [_I, _I, _I, _I, _I, _I, _I, _P],
     "mtm_markov_em_batch_config": [_I, _I, _I, _I, _I, _I, _I, _P],
     "mtm_markov_em_batch": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

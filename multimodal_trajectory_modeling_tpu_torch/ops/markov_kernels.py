@@ -10,7 +10,8 @@ whose Pallas TPU kernels become hand-written CUDA kernels:
 - K2 ``markov_materialize_features`` (:1314) → ``csrc/markov_features.cu``
   (float32 on its staged body, planned by :func:`k2_plan`);
 - K5 ``markov_materialize_features_longT`` (:1842) →
-  ``csrc/markov_features_longT.cu``;
+  ``csrc/markov_features_longT.cu`` (on its staged body, planned by
+  :func:`k5_plan`);
 - K1 ``markov_em_from_features`` (:1464) → ``csrc/markov_em_one.cu``
   under int16 Φ (planned by :func:`k1_plan`), ``csrc/markov_em.cu`` for
   wide Φ and int16 Φ too tall for the new body;
@@ -80,6 +81,8 @@ __all__ = [
     "K1Plan",
     "K2Launch",
     "K2Plan",
+    "K5Launch",
+    "K5Plan",
     "PackedOnePlan",
     "PackedPlan",
     "PhiQuant",
@@ -90,6 +93,8 @@ __all__ = [
     "k1_smem",
     "k2_plan",
     "k2_smem",
+    "k5_plan",
+    "k5_smem",
     "markov_assign_suffix",
     "markov_assign_suffix_plain",
     "markov_em_fused",
@@ -669,6 +674,141 @@ def markov_materialize_features_longT_plain(
     return acc
 
 
+# The (d, l) with their own instantiation in csrc/markov_features_longT.cu
+# (the others take the generic one, d and l up to 8 at run time).
+_K5_FIXED = ((5, 3), (2, 4), (2, 3), (3, 2), (1, 3), (1, 1))
+_K5_ITEMSIZE = {torch.float32: 4, torch.float64: 8}
+_KINDS = {torch.float32: 0, torch.float64: 1}  # the kernels' type codes
+_K5_MAX_DIM = 8  # the kernel's kLongTMax
+_K5_STEPS, _K5_STAGES = 8, 2  # K5's ring: stages of 8 steps, two stages
+
+
+class K5Plan(NamedTuple):
+    """A block of K5's staged body: ``nt`` instances a tile, ``q`` threads
+    an instance (1: every row part in one thread; 3: a part a thread),
+    ``steps`` steps a stage, ``stages`` stages in the ring, ``smem``
+    bytes of shared memory and ``threads`` (q · nt).  The runtime's
+    occupancy (:class:`K5Launch`) adds the blocks an SM."""
+
+    nt: int
+    q: int
+    steps: int
+    stages: int
+    smem: int
+    threads: int
+
+
+class K5Launch(NamedTuple):
+    """K5's staged launch on a device: its plan, then what the runtime
+    gives it: blocks an SM, SMs, registers and local (spill) bytes a
+    thread."""
+
+    nt: int
+    q: int
+    steps: int
+    stages: int
+    smem: int
+    threads: int
+    blocks_per_sm: int
+    sms: int
+    registers: int
+    local_bytes: int
+
+
+def k5_smem(itemsize: int, nt: int, rows: int, steps: int, stages: int) -> int:
+    """Shared memory of a block of K5's staged body (``staged_smem`` in the
+    CUDA source): ``stages`` stages of ``steps`` steps, each step ``rows``
+    = d + l rows of ``nt`` values and one 16-byte line more (each row
+    copied from its aligned start)."""
+    return stages * steps * rows * (nt + 16 // itemsize) * itemsize
+
+
+@functools.lru_cache(maxsize=None)
+def k5_plan(d: int, l: int, dtype: torch.dtype):
+    """The block of K5's staged body for (d, l) in ``dtype``, as a
+    :class:`K5Plan`: one thread an instance on 128-instance tiles in
+    float32 at the compiled (d, l), else three on 64-instance tiles (the
+    body's own); two stages of 8 steps, measured fastest of 2-16 steps and
+    two or three stages at T=128, n=2.5e5 (``tools/k5_phase_split.py``).
+    Shared memory does not grow with T, so one plan serves every T; the
+    largest block, float64 at (8, 8), takes 135 168 bytes.  None where no
+    block fits (d or l past 8, another dtype); the global-memory body
+    then takes the shape."""
+    if dtype not in _K5_ITEMSIZE or not (1 <= d <= _K5_MAX_DIM and 1 <= l <= _K5_MAX_DIM):
+        return None
+    itemsize = _K5_ITEMSIZE[dtype]
+    q = 1 if itemsize == 4 and (d, l) in _K5_FIXED else 3
+    nt = 128 if q == 1 else 64
+    smem = k5_smem(itemsize, nt, d + l, _K5_STEPS, _K5_STAGES)
+    return K5Plan(nt, q, _K5_STEPS, _K5_STAGES, smem, q * nt) if smem <= _MAX_SMEM else None
+
+
+@functools.lru_cache(maxsize=None)
+def _k5_config(device: int, d: int, l: int, dtype: torch.dtype):
+    """The :class:`K5Launch` of K5's staged body at this shape on
+    ``device`` (the plan, then the runtime's occupancy), or None where no
+    plan exists."""
+    plan = k5_plan(d, l, dtype)
+    if plan is None:
+        return None
+    out = (ctypes.c_int * 6)()
+    with torch.cuda.device(device):
+        rc = _build.library().mtm_markov_features_longT_staged_config(
+            _KINDS[dtype], d, l, plan.nt, plan.q, plan.steps, plan.stages, out)
+    _build.check(rc, "markov_materialize_features_longT (its launch)")
+    return K5Launch(*plan[:4], *out)
+
+
+def _k5_body(d: int, l: int, dtype: torch.dtype) -> str:
+    """The body :func:`markov_materialize_features_longT` launches: the
+    staged body where :func:`k5_plan` fits a block, else the global-memory
+    body."""
+    return "staged" if k5_plan(d, l, dtype) is not None else "global"
+
+
+def _features_longT_kernel(z_t, x_t, lens, *, T: int, d: int, l: int, body: str):
+    """Launch K5 with ``body`` on CUDA tensors (checked as the wrapper
+    documents): ``"staged"`` on :func:`k5_plan`'s block, ``"global"`` the
+    global-memory body.  Counted in
+    ``markov_materialize_features_longT.launches``.  Tests and the tools
+    force a body here; :func:`markov_materialize_features_longT` picks it
+    from the shape and the dtype."""
+    if body not in ("staged", "global"):
+        raise ValueError(f"unknown body {body!r}")
+    _check_longT_args(z_t, x_t, lens, T, d, l)
+    if z_t.device.type != "cuda":
+        raise ValueError(f"the kernel takes CUDA tensors, got {z_t.device}")
+    if z_t.dtype not in _KINDS or x_t.dtype != z_t.dtype:
+        raise ValueError(f"z_t and x_t must share float32 or float64, got {z_t.dtype}, {x_t.dtype}")
+    if lens.dtype != torch.int32:
+        raise ValueError(f"lens must be int32, got {lens.dtype}")
+    if not (z_t.is_contiguous() and x_t.is_contiguous() and lens.is_contiguous()):
+        raise ValueError("z_t, x_t and lens must be contiguous")
+    n = z_t.shape[1]
+    if n == 0:
+        raise ValueError("empty batch")
+    if max(d, l) > _K5_MAX_DIM:
+        raise ValueError(f"d={d}, l={l}: the long-T feature kernel takes at most {_K5_MAX_DIM} of each")
+    F_pad = _canonical_rows(d, l)
+    phi = torch.empty((F_pad, n), dtype=z_t.dtype, device=z_t.device)
+    lib = _build.library()
+    dev = _device_index(z_t)
+    stream = torch.cuda.current_stream(z_t.device).cuda_stream
+    args = (_KINDS[z_t.dtype], z_t.data_ptr(), x_t.data_ptr(), lens.data_ptr(), phi.data_ptr(), n, T, d, l, F_pad)
+    if body == "global":
+        rc = lib.mtm_markov_features_longT(dev, *args, stream)
+    else:
+        launch = _k5_config(dev, d, l, z_t.dtype)
+        if launch is None:
+            raise ValueError(f"no staged block fits (d, l) = ({d}, {l}) in {z_t.dtype}")
+        grid = min(-(-n // launch.nt), launch.blocks_per_sm * launch.sms)
+        rc = lib.mtm_markov_features_longT_staged(
+            dev, *args, launch.nt, launch.q, launch.steps, launch.stages, grid, stream)
+    _build.check(rc, "markov_materialize_features_longT")
+    markov_materialize_features_longT.launches += 1
+    return phi
+
+
 def markov_materialize_features_longT(
     z_t: torch.Tensor,  # (T·d, n) transposed latent batch (NaN-padded)
     x_t: torch.Tensor,  # (T·l, n)
@@ -683,48 +823,16 @@ def markov_materialize_features_longT(
     (``pallas_markov.py:1842``).  K1 and K3 then run every iteration from
     it at a cost independent of T.  CUDA tensors launch
     ``csrc/markov_features_longT.cu`` (float32 or float64, contiguous,
-    int32 lens, d and l up to 8; bit-identical to the plain version); CPU
-    tensors take the plain version."""
+    int32 lens, d and l up to 8): its staged body where :func:`k5_plan`
+    fits a block, else its global-memory body, the same Φ bit for bit
+    and bit-identical to the plain version; CPU tensors take the plain
+    version."""
     _check_longT_args(z_t, x_t, lens, T, d, l)
     if z_t.device.type == "cpu":
         return markov_materialize_features_longT_plain(z_t, x_t, lens, T=T, d=d, l=l)
     if z_t.device.type != "cuda":
         raise ValueError(f"unsupported device {z_t.device}")
-    kinds = {torch.float32: 0, torch.float64: 1}
-    if z_t.dtype not in kinds or x_t.dtype != z_t.dtype:
-        raise ValueError(f"z_t and x_t must share float32 or float64, got {z_t.dtype}, {x_t.dtype}")
-    if lens.dtype != torch.int32:
-        raise ValueError(f"lens must be int32, got {lens.dtype}")
-    if not (z_t.is_contiguous() and x_t.is_contiguous() and lens.is_contiguous()):
-        raise ValueError("z_t, x_t and lens must be contiguous")
-    n = z_t.shape[1]
-    if n == 0:
-        raise ValueError("empty batch")
-    lib = _build.library()
-    if max(d, l) > lib.mtm_markov_features_longT_max_dim():
-        raise ValueError(
-            f"d={d}, l={l}: the long-T feature kernel takes at most "
-            f"{lib.mtm_markov_features_longT_max_dim()} of each"
-        )
-    F_pad = _canonical_rows(d, l)
-    phi = torch.empty((F_pad, n), dtype=z_t.dtype, device=z_t.device)
-    rc = lib.mtm_markov_features_longT(
-        _device_index(z_t),
-        kinds[z_t.dtype],
-        z_t.data_ptr(),
-        x_t.data_ptr(),
-        lens.data_ptr(),
-        phi.data_ptr(),
-        n,
-        T,
-        d,
-        l,
-        F_pad,
-        torch.cuda.current_stream(z_t.device).cuda_stream,
-    )
-    _build.check(rc, "markov_materialize_features_longT")
-    markov_materialize_features_longT.launches += 1
-    return phi
+    return _features_longT_kernel(z_t, x_t, lens, T=T, d=d, l=l, body=_k5_body(d, l, z_t.dtype))
 
 
 markov_materialize_features_longT.launches = 0

@@ -44,7 +44,8 @@ one-cluster, sparse and out-of-range assignments, a one-row segment's
 lone cluster and lists many pieces long; its row lists equal a stable
 argsort bit for bit, and its wrapper reads nothing back to the host.  K5 (the
 canonical Φ at any T) rounds every product and sum on its own, in the
-plain version's order, so it equals the plain version bit for bit.  K7
+plain version's order, so it equals the plain version bit for bit; its
+staged body gives its global-memory body's Φ bit for bit.  K7
 (the masked Kalman filter) agrees with the plain version over all T to
 1e-10 relative in float64 and to 1e-4·(1 + |ll|) in float32 (rsqrtf,
 fused multiply-adds, the order of the step's sums, one log of the
@@ -1871,6 +1872,89 @@ def test_longT_features_kernel_is_the_plain_version(cuda, d, l, dtype):
     assert mk.markov_materialize_features_longT.launches == before + 1
     assert torch.equal(phi, mk.markov_materialize_features_longT_plain(z_t, x_t, lens_d, T=T, d=d, l=l))
     assert torch.equal(phi, mk.markov_materialize_features_longT(z_t, x_t, lens_d, T=T, d=d, l=l))
+
+
+# K5's staged body (csrc/markov_features_longT.cu, the wrapper's route)
+# at its edges: n around a tile and a round of persistent blocks, n % 16
+# != 0 (rows off their 16-byte lines: one copy more a row), T = 1 and 2, a
+# part-filled last stage, ADNI's (2, 4), the generic instantiation's (4,
+# 4) and (8, 8), lengths 0..T, |x| ~ 50
+_K5_CASES = {
+    "n=1": (9, 5, 3, 1), "n=127": (9, 5, 3, 127), "n=128": (9, 5, 3, 128), "n=129": (9, 5, 3, 129),
+    "n=2053": (70, 5, 3, 2053), "n=20000": (128, 5, 3, 20000), "n=20037": (128, 5, 3, 20037),
+    "n=rounds+5": (6, 5, 3, 4 * 128 * 132 + 5), "T=1": (1, 5, 3, 301), "T=2": (2, 5, 3, 301),
+    "adni": (70, 2, 4, 2053), "adni-aligned": (70, 2, 4, 4000), "generic": (33, 4, 4, 1037),
+    "generic-8x8": (5, 8, 8, 130), "d1l1": (12, 1, 1, 4001),
+}
+
+
+def _k5_batch(T, d, l, n, seed, dtype, device, scale=1.0):
+    """(z_t, x_t, lens) with lengths 0..T (NaN past each), values N(0, 1)
+    times ``scale`` plus a per-coordinate offset of the same size."""
+    rng = np.random.default_rng(seed)
+    z = (rng.normal(size=(T, n, d)) + rng.normal(size=d)) * scale
+    x = (rng.normal(size=(T, n, l)) + rng.normal(size=l)) * scale
+    lens = rng.integers(0, T + 1, size=n).astype(np.int32)
+    past = np.arange(T)[:, None] >= lens[None, :]
+    z[past], x[past] = np.nan, np.nan
+    # contiguous: at T = 1 numpy's reshape is a strided view, which
+    # torch.tensor would keep
+    z_t = torch.tensor(np.ascontiguousarray(z.transpose(0, 2, 1).reshape(T * d, n)), dtype=dtype, device=device)
+    x_t = torch.tensor(np.ascontiguousarray(x.transpose(0, 2, 1).reshape(T * l, n)), dtype=dtype, device=device)
+    return z_t, x_t, torch.tensor(lens, device=device)
+
+
+def _bits(p):
+    return p.view(torch.int32 if p.dtype == torch.float32 else torch.int64)
+
+
+@pytest.mark.parametrize("scale", [1.0, 50.0])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("case", list(_K5_CASES))
+def test_k5_staged_body_is_the_global_body(cuda, case, dtype, scale):
+    """K5: the staged body (the wrapper's choice) gives the global-memory
+    body's Φ and the plain version's bit for bit, pad rows zero; two calls
+    the same bits; one launch counted a call."""
+    T, d, l, n = _K5_CASES[case]
+    z_t, x_t, lens = _k5_batch(T, d, l, n, 23, dtype, cuda, scale)
+    assert mk._k5_body(d, l, dtype) == "staged"
+    before = mk.markov_materialize_features_longT.launches
+    phi = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
+    assert mk.markov_materialize_features_longT.launches == before + 1
+    glob = mk._features_longT_kernel(z_t, x_t, lens, T=T, d=d, l=l, body="global")
+    plain = mk.markov_materialize_features_longT_plain(z_t, x_t, lens, T=T, d=d, l=l)
+    again = mk.markov_materialize_features_longT(z_t, x_t, lens, T=T, d=d, l=l)
+    assert torch.equal(_bits(phi), _bits(glob)) and torch.equal(_bits(phi), _bits(plain))
+    assert torch.equal(_bits(again), _bits(phi))
+    assert bool((phi[mk._canonical_offsets(d, l)["F"]:] == 0).all())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+@pytest.mark.parametrize("n", [20000, 20037])
+def test_k5_staged_body_on_unaligned_storage(cuda, n, dtype):
+    """z_t one value and x_t three values into their storage (off their
+    16-byte lines: every row copied from its aligned start): the global
+    body's Φ bit for bit."""
+    T, d, l = 40, 5, 3
+    z_t, x_t, lens = _k5_batch(T, d, l, n, 24, dtype, cuda, 50.0)
+    z1 = torch.empty(z_t.numel() + 1, dtype=dtype, device=cuda)[1:].view(z_t.shape).copy_(z_t)
+    x1 = torch.empty(x_t.numel() + 3, dtype=dtype, device=cuda)[3:].view(x_t.shape).copy_(x_t)
+    assert z1.data_ptr() % 16 and x1.data_ptr() % 16 and z1.is_contiguous() and x1.is_contiguous()
+    got = mk.markov_materialize_features_longT(z1, x1, lens, T=T, d=d, l=l)
+    glob = mk._features_longT_kernel(z_t, x_t, lens, T=T, d=d, l=l, body="global")
+    assert torch.equal(_bits(got), _bits(glob))
+
+
+def test_k5_plan_matches_the_kernel(cuda):
+    """The host plan's shared memory is the CUDA source's, its launch fits
+    the card, and the compiled float32 shapes' build spills nothing."""
+    for dtype in (torch.float32, torch.float64):
+        for d, l in ((5, 3), (2, 4), (2, 3), (3, 2), (1, 3), (1, 1), (4, 4), (8, 8), (1, 8)):
+            plan = mk.k5_plan(d, l, dtype)
+            launch = mk._k5_config(cuda.index or 0, d, l, dtype)
+            assert launch.smem == plan.smem and launch.threads == plan.threads and launch.blocks_per_sm >= 1
+            if dtype == torch.float32 and plan.q == 1:
+                assert launch.local_bytes == 0
 
 
 def test_train_em_masked_kalman_cuda_f64_matches_cpu(cuda):
