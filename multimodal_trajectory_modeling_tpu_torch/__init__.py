@@ -16,7 +16,8 @@ What is ported so far:
   kernel K6 on the raw batch, and the E step on it, K10 (K11, the same
   function from canonical weights, has no caller);
 - the dense joint route for any missingness: ``train()`` and the dense
-  multistart in plain torch, and ``train(fast=True)`` / the fast
+  multistart (its candidates trained together in batches, K12 once on a
+  batch's clusters an iteration on the card), and ``train(fast=True)`` / the fast
   multistart on interior missingness (up to 256 patterns and
   T(d+l) ≤ 512) through the pattern-sorted trainer, with kernels K8
   (``ops/estep_kernels.py``) and K9 (``ops/mstep_kernels.py``); on the
@@ -38,6 +39,12 @@ What is ported so far:
   ``observations_mle_cluster_assignment``: the hidden states
   marginalized), through the dense observed moments (K12 on the card) or
   past T·l = 512 the O(T) filters (K7 on the card).
+- the reporting and plotting methods (``print_model``, ``print_tests``,
+  the initial moments, the propensity and parameter plots), the numpy
+  state-space helpers (``utils/state_space.py``) and the ADNI adapter
+  (``utils/adni.py``: the data, the outcome table, the trajectory plot);
+  pandas and matplotlib are imported only where a table is printed or a
+  figure drawn.
 
 The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
 route (out-of-core and data-parallel training) raises ``NotImplementedError`` naming the ROADMAP item that

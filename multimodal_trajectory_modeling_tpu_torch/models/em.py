@@ -51,7 +51,10 @@ on the CPU; time-batched statistics in plain torch, or K15 under
 ``mstep(impl="pallas")``), and ``train_em_sorted`` over a batch sorted by
 missingness pattern through one E-step kernel (K8; K14 on the row-major
 batch) and one Gram kernel (K9) per iteration; K13 gives a sorted
-batch's log-likelihoods.  The observed-only functions take the same
+batch's log-likelihoods.  The dense multistart ``train_em_multistart``
+trains R restarts together: one K12 launch on the clusters of those still
+running and one ``mstep_multi`` an iteration (``train_em`` is its
+one-restart case).  The observed-only functions take the same
 log-density of the observations alone (states marginalized): K12 on the
 card, or past the dense size the O(T) filters.  The JAX
 package traces each loop into one ``while_loop`` or ``fori_loop``; here a
@@ -1142,10 +1145,12 @@ def model_loglik(
 
 
 def _dense_loop(params0, assign0, C, estep_fn, mstep_fn, *, n_steps, min_members):
-    """The status protocol of every dense trainer (``train_em``,
-    ``em.py:1261``): an init guard, an M step from ``assign0``, then E
-    and M up to ``n_steps``, one device→host status read per iteration.
-    ``estep_fn(params, prev) -> (assign, counts, switches)``."""
+    """The status protocol of the sorted and masked trainers
+    (``train_em``, ``em.py:1261``): an init guard, an M step from
+    ``assign0``, then E and M up to ``n_steps``, one device→host status
+    read per iteration.  ``estep_fn(params, prev) -> (assign, counts,
+    switches)``.  :func:`_stacked_dense_loop` is the same protocol on R
+    restarts; a change to one is a change to both."""
     assign0 = assign0.to(torch.int32)
     if int(counts_from_assign(assign0, C).amin()) <= min_members:
         return params0, assign0, 0, STATUS_INIT_ABORT
@@ -1164,6 +1169,78 @@ def _dense_loop(params0, assign0, C, estep_fn, mstep_fn, *, n_steps, min_members
     return params, assign, it, status
 
 
+def _stacked_logliks(params: MixtureParams, v, patterns, pattern_id, *, T: int, method: str):
+    """``(R, C, n)`` log-likelihoods of R-stacked parameters: the joint
+    moments of the R·C clusters, then one :func:`_masked_logliks` call on
+    them (one K12 launch on the card)."""
+    R, C = params.pi.shape
+    flat = MixtureParams(*(p.reshape(R * C, *p.shape[2:]) for p in params))
+    means, covs = cluster_joint_moments(flat, T)
+    return _masked_logliks(means, covs, v, patterns, pattern_id, method).reshape(R, C, -1)
+
+
+def _stacked_assign(pi: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+    """Each restart's hard assignment ``(R, n)`` int32 from ``pi (R, C)``
+    and ``ll (R, C, n)``: the first maximum of ``log π + ll`` over its own
+    C lanes, a NaN winning (:func:`assignments_from_logliks` per restart)."""
+    R, C, n = ll.shape
+    scores = torch.log(pi)[:, :, None] + ll
+    return mk._argmax_first(scores.permute(1, 0, 2).reshape(C, R * n))[1].reshape(R, n)
+
+
+def _stacked_objective(pi: torch.Tensor, ll: torch.Tensor) -> torch.Tensor:
+    """:func:`_hard_objective` of each restart: ``(R,)``."""
+    a = _stacked_assign(pi, ll).long()
+    return torch.log(pi).gather(1, a).sum(1) + ll.gather(1, a[:, None])[:, 0].sum(1)
+
+
+def _stacked_dense_loop(
+    params0, assign0, z, x, v, patterns, pattern_id, *, n_steps, reg_mode, alpha, method, min_members
+):
+    """:func:`_dense_loop`'s protocol on R restarts trained together:
+    ``(params, assign (R, n), iters (R,), status (R,))``.
+
+    Each restart: the init guard (``STATUS_INIT_ABORT``, its ``params0``,
+    0 iterations), one M step from ``assign0``, then E and M up to
+    ``n_steps``.  An iteration reads which restarts still run (its one
+    device→host read) and works on those alone: the joint moments of
+    their clusters, one :func:`_masked_logliks` call on them (one K12
+    launch on the card), each one's assignment over its own C lanes, its
+    counts and switches, and :func:`mstep_multi` on their assignments.  A
+    restart that has stopped keeps its parameters, assignment, iterations
+    and status."""
+    T = z.shape[0]
+    C = params0.pi.shape[1]
+    assign = assign0.to(torch.int32)
+
+    def mstep_fn(a):
+        return mstep_multi(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
+
+    init_abort = _counts_rows(assign, C).amin(dim=1) <= min_members
+    # an aborted restart's lanes may be empty (NaN solves): selected away
+    params = _tree_select_rows(init_abort, params0, mstep_fn(assign))
+    status = torch.where(init_abort, STATUS_INIT_ABORT, STATUS_RUNNING).to(torch.int32)
+    iters = torch.zeros_like(status)
+    for _ in range(n_steps):
+        rows = (status == STATUS_RUNNING).nonzero()[:, 0]
+        if rows.numel() == 0:
+            break
+        run = MixtureParams(*(p[rows] for p in params))
+        new = _stacked_assign(
+            run.pi, _stacked_logliks(run, v, patterns, pattern_id, T=T, method=method)
+        )
+        _conv, _empty, advance, status_new = _em_termination(
+            (new != assign[rows]).sum(1), _counts_rows(new, C), status[rows],
+            min_members=min_members,
+        )
+        run = _tree_select_rows(advance, mstep_fn(new), run)
+        params = MixtureParams(*(p.index_copy(0, rows, q) for p, q in zip(params, run)))
+        assign = assign.index_copy(0, rows, new)
+        status = status.index_copy(0, rows, status_new.to(torch.int32))
+        iters = iters.index_add(0, rows, torch.ones_like(rows, dtype=torch.int32))
+    return params, assign, iters, status
+
+
 def train_em(
     params0: MixtureParams,
     assign0: torch.Tensor,  # (n,) int
@@ -1180,26 +1257,19 @@ def train_em(
     min_members: int = 3,
 ):
     """Hard EM on the dense joint, the bit-parity route: ``(params,
-    assign, iterations, status)`` (Python ints for the last two).
+    assign, iterations, status)`` (Python ints for the last two); the
+    one-restart case of :func:`_stacked_dense_loop`.
 
     1. if some cluster of ``assign0`` has ≤ ``min_members`` members,
        return untouched (STATUS_INIT_ABORT);
     2. an M step from ``assign0``;
     3. up to ``n_steps``: E; no switches → CONVERGED; a near-empty cluster
        → EMPTY_CLUSTER (assignment updated, parameters kept); else M."""
-    T = z.shape[0]
-    C = params0.pi.shape[0]
-
-    def estep_fn(params, prev):
-        ll = estep_logliks(params, v, patterns, pattern_id, T=T, method=method)
-        return _hard_estep(params.pi, ll, prev, C)
-
-    def mstep_fn(a):
-        return mstep(z, x, a, n_clusters=C, reg_mode=reg_mode, alpha=alpha)
-
-    return _dense_loop(
-        params0, assign0, C, estep_fn, mstep_fn, n_steps=n_steps, min_members=min_members
+    params, assign, iters, status = _stacked_dense_loop(
+        stack_params([params0]), assign0[None], z, x, v, patterns, pattern_id,
+        n_steps=n_steps, reg_mode=reg_mode, alpha=alpha, method=method, min_members=min_members,
     )
+    return MixtureParams(*(p[0] for p in params)), assign[0], int(iters[0]), int(status[0])
 
 
 def train_em_multistart(
@@ -1213,25 +1283,21 @@ def train_em_multistart(
     method: str = "auto",
     min_members: int = 3,
 ):
-    """R dense fits, one after another, each with its objective under a
-    fresh E step: ``(params, assign (R, n), iters (R,), status (R,), obj
-    (R,))``, restart r as the JAX package's vmapped ``em.py:2762`` gives
-    it (a standalone :func:`train_em` run)."""
+    """R dense fits trained together (:func:`_stacked_dense_loop`), each
+    with its objective under a fresh E step: ``(params, assign (R, n),
+    iters (R,), status (R,), obj (R,))``, restart r as a standalone
+    :func:`train_em` run gives it (the JAX package ``vmap``s
+    ``train_em``, ``em.py:2762``).  The objectives take one more
+    :func:`_masked_logliks` call, on all R·C clusters."""
+    params, assign, iters, status = _stacked_dense_loop(
+        params0, assign0, z, x, v, patterns, pattern_id,
+        n_steps=n_steps, reg_mode=reg_mode, alpha=alpha, method=method, min_members=min_members,
+    )
     T = z.shape[0]
-    fits, objs = [], []
-    for p0, a0 in zip(unstack_params(params0), assign0):
-        fit = train_em(
-            p0, a0, z, x, v, patterns, pattern_id, n_steps=n_steps,
-            reg_mode=reg_mode, alpha=alpha, method=method, min_members=min_members,
-        )
-        fits.append(fit)
-        objs.append(complete_data_loglik(fit[0], v, patterns, pattern_id, T=T, method=method))
-    params, assign, iters, status = zip(*fits)
-
-    def ints(vals):
-        return torch.tensor(vals, dtype=torch.int32, device=assign0.device)
-
-    return stack_params(params), torch.stack(assign), ints(iters), ints(status), torch.stack(objs)
+    obj = _stacked_objective(
+        params.pi, _stacked_logliks(params, v, patterns, pattern_id, T=T, method=method)
+    )
+    return params, assign, iters, status, obj
 
 
 def estep_assign_sorted(
@@ -1451,9 +1517,7 @@ def emstep_masked_kalman_multi(
     if packed is None:
         packed = kk.plan_masked_batch(z, x)
     flat = MixtureParams(*(p.reshape(R * C, *p.shape[2:]) for p in params))
-    ll = _filter_logliks(flat, packed).reshape(R, C, n)
-    scores = torch.log(params.pi)[:, :, None] + ll
-    e_assign = mk._argmax_first(scores.permute(1, 0, 2).reshape(C, R * n))[1].reshape(R, n)
+    e_assign = _stacked_assign(params.pi, _filter_logliks(flat, packed).reshape(R, C, n))
     if force_prev is not None:
         e_assign = torch.where((force_prev > 0)[:, None], prev, e_assign)
     switches = (e_assign != prev).sum(1)

@@ -14,9 +14,15 @@ predictions), ``regress``/``regress_alpha`` (:756-773), ``E_step`` and
 (:968-1010) and ``train_with_multiple_random_starts`` (:1012-1472), on
 the Markov route (suffix missingness, any T), the dense joint route (any
 missingness within its size gate) and the masked-filter route (any
-missingness past it); and the observed-only family (:706-750), which
+missingness past it); the observed-only family (:706-750), which
 marginalizes the hidden states: ``_packed_observed`` (:288) and
-``_all_observed_logliks`` (:496).
+``_all_observed_logliks`` (:496); and the reporting and plotting methods
+(:1478-1843: ``print_model``, ``print_tests``,
+``superimpose_model_on_plot``, ``get_initial_means_and_stds``,
+``get_initial_diffs_means_and_stds``, the propensity plots,
+``plot_matrix``, ``ponder`` and ``generate_model_plots``), which import
+matplotlib and scipy where they are used and apply the JAX package's
+matplotlib settings inside ``plt.rc_context`` only.
 
 The suffix gate is taken per instance, before the joint batch is packed,
 so the Markov route never packs it; it is the same gate as the JAX
@@ -65,9 +71,14 @@ from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
 from multimodal_trajectory_modeling_tpu_torch.ops import moments as jmom
 from multimodal_trajectory_modeling_tpu_torch.ops import regression as rops
+from multimodal_trajectory_modeling_tpu_torch.utils import state_space as ssu
 from multimodal_trajectory_modeling_tpu_torch.utils.trace import EMTrace
 
 np_eps = np.finfo(float).eps
+
+# the dense multistart's batch budget, the JAX package's ~6 GB cap
+# (mixture.py:1398-1408)
+_DENSE_BATCH_BYTES = 6e9
 
 # repo root (…/multimodal_trajectory_modeling_tpu_torch/models/ → two up):
 # the cache lives in <root>/tmp, beside the JAX package's
@@ -215,19 +226,30 @@ class MMLinGaussSS_marginalizable:
     # parameter plumbing
     # ------------------------------------------------------------------
 
+    def _params_numpy(self) -> tuple:
+        """The parameters as one float64 array per leaf, clusters first."""
+        return (
+            np.asarray(self.cluster_propensities),
+            np.stack(self.init_state_means),
+            np.stack(self.init_state_covs),
+            np.stack(self.transition_matrices),
+            np.stack(self.transition_covs),
+            np.stack(self.measurement_matrices),
+            np.stack(self.measurement_covs),
+        )
+
     def _stacked_params(self) -> em.MixtureParams:
         return em.mixture_params_from_numpy(
-            (
-                self.cluster_propensities,
-                np.stack(self.init_state_means),
-                np.stack(self.init_state_covs),
-                np.stack(self.transition_matrices),
-                np.stack(self.transition_covs),
-                np.stack(self.measurement_matrices),
-                np.stack(self.measurement_covs),
-            ),
-            device=self.device,
-            dtype=self.dtype,
+            self._params_numpy(), device=self.device, dtype=self.dtype
+        )
+
+    @staticmethod
+    def _stack_candidates(batch, *, device, dtype) -> em.MixtureParams:
+        """The parameters of a list of candidates on a leading restart
+        axis, stacked on the host."""
+        return em.mixture_params_from_numpy(
+            tuple(np.stack(leaf) for leaf in zip(*(c._params_numpy() for c in batch))),
+            device=device, dtype=dtype,
         )
 
     def _set_params(self, params: em.MixtureParams) -> None:
@@ -977,17 +999,20 @@ class MMLinGaussSS_marginalizable:
         - ``fast=True`` on other missingness: one after another through
           the pattern-sorted :func:`em.train_em_sorted`, objectives from
           :func:`em.complete_data_loglik`;
-        - ``fast=False``: the dense :func:`em.train_em_multistart`;
-          ``starts_per_batch`` is accepted, and changes nothing here, where
-          the candidates train one after another.
+        - ``fast=False``: the dense :func:`em.train_em_multistart`, the
+          candidates in batches of ``starts_per_batch`` trained together
+          (one K12 launch an iteration on the clusters of the batch's
+          running candidates), the batch clamped by the JAX package's
+          memory cap of ~6 GB at ≈ 4·n·D·C bytes a candidate
+          (D = T(d+l)).
 
         ``fast=None`` takes ``fast=True`` at n ≥ 200 000 on a CUDA device.
         The winner is the first candidate whose objective is strictly
         greater than all before it; if it is not finite,
         ``Exception("training failed")``.  The winner's ``last_multistart``
         records the run: the k-means seconds, every candidate's iterations
-        and status, and the pool's :class:`em.PoolStats` (None off the
-        pool).
+        and status, the pool's :class:`em.PoolStats` (None off the pool)
+        and the dense batches (0 off the dense route).
 
         ``verbose=True`` trains the candidates one after another through
         ``train(verbose=True)``, with the reference's transcript, and
@@ -1030,6 +1055,7 @@ class MMLinGaussSS_marginalizable:
         fit = dict(n_steps=n_steps, reg_mode=reg_mode, alpha=float(self.alpha))
 
         pool_stats = None
+        batches = 0
         if lens is not None:
             z = self._on_device(self.states)
             x = self._on_device(self.observations)
@@ -1116,15 +1142,24 @@ class MMLinGaussSS_marginalizable:
                 )
         else:
             _T0, z, x, v, patterns, pid = self._packed()
-            params_b, assign_b, iters_b, status_b, obj_b = em.train_em_multistart(
-                em.stack_params([c._stacked_params() for c in candidates]),
-                self._on_device(np.stack([c.cluster_assignment for c in candidates]), torch.int32),
-                z, x, v, patterns, self._on_device(pid, torch.int32), **fit,
-            )
-            results = list(zip(
-                em.unstack_params(params_b), assign_b, iters_b.tolist(), status_b.tolist()
-            ))
-            objectives = obj_b.cpu().tolist()
+            pid = self._on_device(pid, torch.int32)
+            # the JAX package's memory model of its vmapped batch
+            # (mixture.py:1398-1408): ≈ 4·n·D·C bytes a restart, D = T(d+l)
+            per_restart = 4 * self.n_data * T * (d + l) * self.n_clusters
+            starts_per_batch = min(starts_per_batch, max(1, int(_DENSE_BATCH_BYTES // per_restart)))
+            results, objectives = [], []
+            for lo in range(0, len(candidates), starts_per_batch):
+                batch = candidates[lo : lo + starts_per_batch]
+                params_b, assign_b, iters_b, status_b, obj_b = em.train_em_multistart(
+                    self._stack_candidates(batch, device=self.device, dtype=self.dtype),
+                    self._on_device(np.stack([c.cluster_assignment for c in batch]), torch.int32),
+                    z, x, v, patterns, pid, **fit,
+                )
+                results += zip(
+                    em.unstack_params(params_b), assign_b, iters_b.tolist(), status_b.tolist()
+                )
+                objectives += obj_b.cpu().tolist()
+                batches += 1
 
         objectives = np.asarray(objectives)
         best_i = 0
@@ -1147,6 +1182,7 @@ class MMLinGaussSS_marginalizable:
             "iterations": [r[2] for r in results],
             "statuses": [r[3] for r in results],
             "pool": pool_stats,
+            "batches": batches,
         }
         if use_cache:
             best_mdl.to_pickle()
@@ -1188,6 +1224,350 @@ class MMLinGaussSS_marginalizable:
         if return_objectives:
             return best_mdl, np.array(objective_list)
         return best_mdl
+
+    # ------------------------------------------------------------------
+    # reporting and plotting (mixture.py:1478-1843); pandas-free, with
+    # matplotlib and scipy imported where they are used
+    # ------------------------------------------------------------------
+
+    def print_model(self, *, verbose: bool = False, line_len: int = 79):
+        """Pretty-print the parameters per lettered cluster
+        (``mixture.py:1478``)."""
+        print(
+            "MixtureModelLinearGaussianStateSpace |".ljust(line_len, "=") + "\n"
+        )
+        for s in string.ascii_uppercase[: self.n_clusters]:
+            c = self.inverse_correspondence[s]
+            print(f"Cluster {s} |".ljust(line_len, "-"))
+            print(f"Cluster propensity:\n {self.cluster_propensities[c]:.3f}")
+            print(f"Initial state mean:\n {np.round(self.init_state_means[c], 3)}")
+            if verbose:
+                print(f"Initial state cov:\n {np.round(self.init_state_covs[c], 3)}")
+            print(f"State transition coeffs:\n {np.round(self.transition_matrices[c], 3)}")
+            if verbose:
+                print(f"Transition cov:\n {np.round(self.transition_covs[c], 3)}")
+            print(f"Measurement coeffs:\n {np.round(self.measurement_matrices[c], 3)}")
+            if verbose:
+                print(f"Measurement cov:\n {np.round(self.measurement_covs[c], 3)}")
+        print(f"{self.last_trained=}")
+        print(f"{self.hex_hash=}")
+        print("=" * line_len)
+
+    def print_tests(
+        self,
+        *,
+        test_1: bool = False,
+        test_01: bool = False,
+        test_obs: bool = False,
+    ) -> None:
+        """Per-cluster OLS diagnostics of the transition and measurement
+        models (``mixture.py:1518``): coefficients, t statistics, p values,
+        R², and the optional hypothesis t-tests, in numpy and
+        ``scipy.stats``."""
+        for s in string.ascii_uppercase[: self.n_clusters]:
+            c = self.inverse_correspondence[s]
+            mask = self.cluster_assignment == c
+            Zp = np.vstack(list(self.states[:-1, mask, :]))
+            Zn = np.vstack(list(self.states[1:, mask, :]))
+            keep = np.isfinite(np.column_stack([Zp, Zn])).all(axis=1)
+            Zp, Zn = Zp[keep], Zn[keep]
+            for i in range(self.d_states):
+                print(f" Cluster {s} -- State {i} ".center(78, "-"))
+                _print_ols_summary(Zp, Zn[:, i])
+                if test_1:
+                    _print_t_test(Zp, Zn[:, i], {i: 1.0})
+                if test_01:
+                    other = 0 if i + 1 == 2 else 1
+                    _print_t_test(Zp, Zn[:, i], {other: 0.0, i: 1.0})
+            if test_obs:
+                Xs = np.vstack(list(self.observations[:, mask, :]))
+                Zs = np.vstack(list(self.states[:, mask, :]))
+                keep = np.isfinite(np.column_stack([Xs, Zs])).all(axis=1)
+                Xs, Zs = Xs[keep], Zs[keep]
+                for j in range(self.d_observations):
+                    print(f" Cluster {s} -- Observation {j} ")
+                    _print_ols_summary(Zs, Xs[:, j])
+
+    def superimpose_model_on_plot(self, ax, std_param):
+        """Contour the initial-state Gaussians on an existing 2-D axis
+        (``mixture.py:1553``)."""
+        import scipy.stats as sp_stats
+
+        for i, s in enumerate(string.ascii_uppercase[: self.n_clusters]):
+            c = self.inverse_correspondence[s]
+            me, co = ssu.unstandardize_mean_and_cov(
+                self.init_state_means[c], self.init_state_covs[c], params=std_param
+            )
+            xv, yv = np.meshgrid(
+                np.linspace(*ax.get_xlim(), num=1000),
+                np.linspace(*ax.get_ylim(), num=1000),
+            )
+            zv = sp_stats.multivariate_normal(mean=me, cov=co).pdf(np.dstack((xv, yv)))
+            ax.contour(
+                xv, yv, zv, colors=ssu.CLUSTER_COLORS[i],
+                linewidths=np.flip(1.5 ** -np.arange(10)),
+            )
+
+    def get_initial_means_and_stds(self, std_param=None):
+        """``{cluster letter: {"μ": …, "σ": …}}`` of the initial (z, x)
+        features (``mixture.py:1578``)."""
+        out = {}
+        for j in range(self.n_clusters):
+            mz = self.init_state_means[j]
+            cz = self.init_state_covs[j]
+            H = self.measurement_matrices[j]
+            mx = mz @ H
+            cx = self.measurement_covs[j] + H.T @ cz @ H
+            if std_param is not None:
+                mz, cz = ssu.unstandardize_mean_and_cov(mz, cz, params=std_param)
+            mzx = np.concatenate([mz, mx])
+            var = np.concatenate([np.diag(np.atleast_2d(cz)), np.diag(np.atleast_2d(cx))])
+            out[self.correspondence[j]] = {"μ": mzx, "σ": np.sqrt(var)}
+        return out
+
+    def get_initial_diffs_means_and_stds(self, std_param=None):
+        """The same for the first differences, step 2 minus step 1
+        (``mixture.py:1599``): the joint moments of two steps from
+        :mod:`..ops.moments`, in float64 on the CPU whatever the model's
+        device."""
+        d, l = self.d_states, self.d_observations
+        coeff = np.block(
+            [
+                [-np.eye(d), np.eye(d), np.zeros((d, 2 * l))],
+                [np.zeros((l, 2 * d)), -np.eye(l), np.eye(l)],
+            ]
+        )
+
+        def host(a):
+            return torch.as_tensor(np.asarray(a, dtype=float))
+
+        out = {}
+        for j in range(self.n_clusters):
+            m, S, A, G, H, L = map(host, (
+                self.init_state_means[j], self.init_state_covs[j],
+                self.transition_matrices[j], self.transition_covs[j],
+                self.measurement_matrices[j], self.measurement_covs[j],
+            ))
+            mu = coeff @ jmom.joint_mean(2, m, A, H).numpy()
+            cc = coeff @ jmom.joint_cov(2, S, A, G, H, L).numpy() @ coeff.T
+            if std_param is not None:
+                mu[:d], cc[:d, :d] = ssu.unstandardize_mean_and_cov_diffs(
+                    mu[:d], cc[:d, :d], params=std_param
+                )
+            out[self.correspondence[j]] = {"μ": mu, "σ": np.sqrt(np.diag(np.atleast_2d(cc)))}
+        return out
+
+    def plot_cluster_propensity_evolution(
+        self,
+        savename: str,
+        *,
+        title: str = "Cluster Assignment Probability (using observed only) \n"
+        "vs. Number of Time steps",
+        observations=None,
+    ) -> None:
+        """Mean ± sem of the membership probability in the finally assigned
+        cluster over time, from the observations alone
+        (``mixture.py:1641``)."""
+        self._plot_propensity_evolution(
+            savename,
+            title,
+            self.observed_cluster_propensities_over_time(observations=observations),
+            self.observations_mle_cluster_assignment(observations=observations),
+            self.observations.shape[0] if observations is None else observations.shape[0],
+        )
+
+    def plot_overall_cluster_propensity_evolution(
+        self,
+        savename: str,
+        *,
+        title: str = "Cluster Assignment Probability\n"
+        "vs. Number of Time steps",
+        observations=None,
+        states=None,
+    ) -> None:
+        """The same from the hidden and observed data (``mixture.py:1670``)."""
+        if observations is None:
+            observations = self.observations
+            states = self.states
+        self._plot_propensity_evolution(
+            savename,
+            title,
+            self.cluster_propensities_over_time(states=states, observations=observations),
+            self.mle_cluster_assignment(states=states, observations=observations),
+            observations.shape[0],
+        )
+
+    def _plot_propensity_evolution(
+        self, savename, title, propensities_over_time, final_assignments, _T0
+    ) -> None:
+        import matplotlib.pyplot as plt
+        import scipy.stats as sp_stats
+
+        assert final_assignments.shape[0] == propensities_over_time.shape[1]
+        chosen = np.stack(
+            [
+                propensities_over_time[:, i, final_assignments[i]]
+                for i in range(propensities_over_time.shape[1])
+            ]
+        )
+        with plt.rc_context(ssu.PLOT_RC):
+            fig, ax = plt.subplots()
+            ax.spines["right"].set_visible(False)
+            ax.spines["top"].set_visible(False)
+            for i, s in enumerate(string.ascii_uppercase[: self.n_clusters]):
+                sel = final_assignments == self.inverse_correspondence[s]
+                ax.errorbar(
+                    x=np.arange(_T0) + 0.025 * (i - int(self.n_clusters / 2)),
+                    y=np.nanmean(chosen[sel], axis=0).T,
+                    yerr=sp_stats.sem(chosen[sel], axis=0).T,
+                    color=ssu.CLUSTER_COLORS[i],
+                    linestyle="solid",
+                    label=f"cluster {s}",
+                    capsize=5,
+                )
+            handles, labels = ax.get_legend_handles_labels()
+            uniq = dict(zip(labels, handles))
+            ax.legend(uniq.values(), uniq.keys(), fontsize="large")
+            plt.xticks(ticks=range(self.n_timesteps), labels=range(1, self.n_timesteps + 1))
+            plt.title(title)
+            ax.set_xlabel("Time steps")
+            ax.set_ylabel("Probability")
+            plt.savefig(savename, transparent=True)
+
+    @staticmethod
+    def plot_matrix(
+        mat,
+        *,
+        show_colorbar: bool = False,
+        show_labels: bool = True,
+        xticks: list = None,
+        xlabel: str = None,
+        yticks: list = None,
+        ylabel: str = None,
+        title: str = None,
+        fmt_str: str = "{:.2f}",
+        figsize: tuple = (6.4, 4.8),
+        savename=None,
+        show: bool = False,
+    ):
+        """Annotated matshow of a parameter matrix (``mixture.py:1731``)."""
+        import matplotlib.pyplot as plt
+
+        mat = np.atleast_2d(mat)
+        with plt.rc_context(ssu.PLOT_RC):
+            fig, ax = plt.subplots(layout="constrained", figsize=figsize)
+            im = ax.matshow(mat, cmap="cividis")
+            if show_colorbar:
+                ax.figure.colorbar(im, ax=ax)
+            if xticks:
+                ax.set_xticks(np.arange(len(xticks)), labels=xticks)
+                plt.setp(ax.get_xticklabels(), rotation=-30, ha="right", rotation_mode="anchor")
+            if yticks is not None:
+                ax.set_yticks(np.arange(len(yticks)), labels=yticks)
+            if title is not None:
+                plt.title(title)
+            if xlabel is not None:
+                plt.xlabel(xlabel)
+            if ylabel is not None:
+                plt.ylabel(ylabel)
+            if show_labels:
+                mid = np.mean(im.get_clim())
+                for (i, j), val in np.ndenumerate(mat):
+                    ax.text(
+                        j, i, fmt_str.format(val), ha="center", va="center",
+                        c="black" if val > mid else "white",
+                    )
+            plt.tick_params(bottom=False)
+            if mat.shape[0] == 1:
+                plt.tick_params(left=False, labelleft=False, bottom=False)
+            if savename is not None:
+                plt.savefig(savename, transparent=True)
+            if show:
+                plt.show()
+
+    @staticmethod
+    def ponder():
+        import webbrowser
+
+        webbrowser.open_new_tab("https://doi.org/10.1017/prm.2023.96")
+
+    def generate_model_plots(self, folder, **kwargs):
+        """One annotated-matrix PDF per parameter per cluster
+        (``mixture.py:1796``)."""
+        sub = os.path.join(folder, f"{self.hex_hash}-{self.n_clusters}cl")
+        os.makedirs(sub, exist_ok=True)
+        order = np.argsort(np.array([self.correspondence[i] for i in range(self.n_clusters)]))
+        self.plot_matrix(
+            self.cluster_propensities[order],
+            savename=os.path.join(sub, f"{self.hex_hash}-propensities.pdf"),
+            title="Overall cluster propensities",
+            **kwargs,
+        )
+        for c in range(self.n_clusters):
+            for param in (
+                "init_state_means",
+                "init_state_covs",
+                "transition_matrices",
+                "transition_covs",
+                "measurement_matrices",
+                "measurement_covs",
+            ):
+                self.plot_matrix(
+                    getattr(self, param)[c],
+                    savename=os.path.join(
+                        sub, f"{self.hex_hash}-{param}-{self.correspondence[c]}.pdf"
+                    ),
+                    title="Cluster {c} {param}".format(
+                        c=self.correspondence[c],
+                        param=param[:-1].replace("_", " ").replace("matrice", "matrix"),
+                    ),
+                    **kwargs,
+                )
+
+
+def _ols(X: np.ndarray, y: np.ndarray):
+    """``(beta, residual dof, σ², (XᵀX)⁺)`` of the least-squares fit."""
+    n, p = X.shape
+    beta, *_ = np.linalg.lstsq(X, y, rcond=None)
+    resid = y - X @ beta
+    dof = n - p
+    return beta, resid, dof, resid @ resid / dof, np.linalg.pinv(X.T @ X)
+
+
+def _print_ols_summary(X: np.ndarray, y: np.ndarray) -> None:
+    """A minimal OLS summary (coefficients, standard errors, t, p, R²;
+    ``mixture.py:1856``)."""
+    import scipy.stats as sp_stats
+
+    n, p = X.shape
+    beta, resid, dof, sigma2, XtX_inv = _ols(X, y)
+    se = np.sqrt(np.diag(XtX_inv) * sigma2)
+    tvals = beta / se
+    pvals = 2 * sp_stats.t.sf(np.abs(tvals), dof)
+    ss_tot = np.sum((y - y.mean()) ** 2)
+    r2 = 1 - resid @ resid / ss_tot if ss_tot > 0 else np.nan
+    print(f"OLS  n={n}  dof={dof}  R²={r2:.4f}  sigma²={sigma2:.4f}")
+    for i in range(p):
+        print(
+            f"  x{i + 1}: coef={beta[i]: .4f}  se={se[i]:.4f}  "
+            f"t={tvals[i]: .3f}  p={pvals[i]:.4g}"
+        )
+
+
+def _print_t_test(X: np.ndarray, y: np.ndarray, hypotheses: dict[int, float]) -> None:
+    """t-tests of ``beta[k] == value`` for each (k, value) pair
+    (``mixture.py:1878``)."""
+    import scipy.stats as sp_stats
+
+    beta, _resid, dof, sigma2, XtX_inv = _ols(X, y)
+    desc = ", ".join(f"x{k + 1}={v}" for k, v in hypotheses.items())
+    print(f"testing {desc}")
+    for k, v in hypotheses.items():
+        se = np.sqrt(XtX_inv[k, k] * sigma2)
+        t = (beta[k] - v) / se
+        pv = 2 * sp_stats.t.sf(np.abs(t), dof)
+        print(f"  x{k + 1}: t={t:.3f}  p={pv:.4g}  dof={dof}")
+    print(f"dof={dof}")
 
 
 def _regress(X, Y, mode, alpha, device, dtype):

@@ -1,1 +1,2 @@
-"""Training observability (``trace``)."""
+"""Training observability (``trace``), the numpy state-space helpers
+(``state_space``) and the ADNI adapter (``adni``)."""

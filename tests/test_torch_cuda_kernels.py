@@ -1219,6 +1219,41 @@ def test_estep_logliks_fused_chunks_on_the_card(cuda, monkeypatch):
     assert bool(((chunked - whole).abs() <= 1e-12 * whole.abs().clamp_min(1.0)).all())
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
+def test_estep_logliks_at_the_dense_multistart_s_clusters(cuda, dtype):
+    """K12 as the ADNI multistart's stacked E step calls it: 256
+    candidates' random initial parameters (R·C = 768 clusters), D = 24, the
+    data's 3 patterns, n = 571; one launch through ``estep_logliks_fused``,
+    against the plain version."""
+    from multimodal_trajectory_modeling_tpu_torch.models import MMLinGaussSS_marginalizable
+    from multimodal_trajectory_modeling_tpu_torch.utils import adni, state_space
+
+    z, x, _d, _ids, _time = adni.get_trajectories()
+    np.random.seed(0)
+    model = MMLinGaussSS_marginalizable(3, state_space.standardize(z), x, device="cpu")
+    cands = [model._candidate(100 + i) for i in range(256)]
+    stacked = MMLinGaussSS_marginalizable._stack_candidates(cands, device=cuda, dtype=torch.float64)
+    params = tem.MixtureParams(*(p.reshape(768, *p.shape[2:]) for p in stacked))
+    _T0, _z, _x, v, pat, pid = model._packed()
+    v, pat, pid = v.to(cuda), pat.to(cuda), torch.as_tensor(pid, device=cuda)
+    assert pat.shape == (3, 24) and v.shape == (571, 24)
+    means, covs = tem.cluster_joint_moments(params, 4)
+    # the fused call takes its inverses in its own type: held against the
+    # plain version on those inverses
+    md, cd, vd = means.to(dtype), covs.to(dtype), v.to(dtype)
+    before = ek.estep_logliks_pallas.launches
+    got = ek.estep_logliks_fused(md, cd, vd, pat, pid)
+    assert ek.estep_logliks_pallas.launches == before + 1
+    assert got.shape == (768, 571)
+    minv_d, const_d = ek.precompute_cluster_pattern_inverses(md, cd, pat)
+    _assert_logliks_close(got, ek.estep_logliks_pallas_plain(vd, pid, md, minv_d, const_d).double(), dtype)
+    minv, const = ek.precompute_cluster_pattern_inverses(means, covs, pat)
+    ops = tuple(o.to(dtype) for o in (means, minv, const))
+    got = ek.estep_logliks_pallas(v.to(dtype), pid, *ops)
+    _assert_logliks_close(got, ek.estep_logliks_pallas_plain(v, pid, means, minv, const), dtype)
+    assert torch.equal(got, ek.estep_logliks_pallas(v.to(dtype), pid, *ops))
+
+
 @pytest.mark.parametrize("T,n", [(10, 20037), (64, 1500)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.float64])
 def test_estep_assign_rows_kernel_is_k8(cuda, T, n, dtype):

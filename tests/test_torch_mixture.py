@@ -4,6 +4,9 @@ NaN-suffix-padded), float64 on the CPU.  ``np.random.seed(k)`` before each
 constructor gives both the same random init; the fits must then agree on
 assignments and (to 1e-10) on every parameter."""
 
+import contextlib
+import io
+
 import numpy as np
 import pytest
 import torch
@@ -81,8 +84,10 @@ def test_train_fast_matches_jax_on_adni(adni_data, seed):
 def test_unported_routes_raise(adni_data, monkeypatch):
     """What still raises: out-of-core training.  What once raised and now
     runs: the observed-only inference family (held against JAX here and
-    in ``test_torch_observed.py``), ``bic`` (held against JAX), the
-    verbose transcript (its own parity tests), the masked-filter route
+    in ``test_torch_observed.py``), ``bic`` (held against JAX),
+    ``print_model`` (the same text as JAX's; the other reports in
+    ``test_torch_adni.py``), the verbose transcript (its own parity
+    tests), the masked-filter route
     (more than 256 patterns, or T(d+l) > 512) and at long T on suffix data
     the routes of kernel K6 (``MTM_MARKOV_PRECOMP=0`` and the sequential
     multistart; their parity tests are in ``test_torch_longT.py``).  A
@@ -93,8 +98,12 @@ def test_unported_routes_raise(adni_data, monkeypatch):
                                jm.observed_conditional_log_likelihoods(1), rtol=1e-10)
     np.testing.assert_array_equal(tm.observations_mle_cluster_assignment(),
                                   jm.observations_mle_cluster_assignment())
-    with pytest.raises(AttributeError, match="no attribute"):
-        tm.print_model  # noqa: B018 — a reporting method, not ported
+    printed = []
+    for m in (tm, jm):
+        with contextlib.redirect_stdout(io.StringIO()) as out:
+            m.print_model(verbose=True)
+        printed.append([ln for ln in out.getvalue().splitlines() if "last_trained" not in ln])
+    assert len(printed[0]) > 20 and printed[0] == printed[1]
     np.testing.assert_allclose(tm.bic(), jm.bic(), rtol=1e-12)
     monkeypatch.setenv("MTM_MARKOV_OOC", "1")
     with pytest.raises(NotImplementedError, match="item 9"):
