@@ -44,7 +44,18 @@ What is ported so far:
   state-space helpers (``utils/state_space.py``) and the ADNI adapter
   (``utils/adni.py``: the data, the outcome table, the trajectory plot);
   pandas and matplotlib are imported only where a table is printed or a
-  figure drawn.
+  figure drawn;
+- the function API (``models/statespace_api.py``: the reference's
+  module-level functions, numpy in and out; its marginalizing
+  log-densities through K12 on the card), the kNN regression and grid
+  search (``ops/knn.py``: host numpy for small problems, one distance GEMM
+  and a top-k on the caller's device for large ones, ties to the lower
+  training index), and the extended framework: the linear-Gaussian, kNN
+  and hybrid component models, the generic mixture
+  ``StateSpaceMixtureModel`` (hard EM over any component class, restarts
+  in worker processes, the gzip cache) and ``StateSpaceModelClassifier``.
+  CPU parity: ``python -m pytest tests/test_torch_statespace_api.py
+  tests/test_torch_knn.py tests/test_torch_extended.py``.
 
 The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
 route (out-of-core and data-parallel training) raises ``NotImplementedError`` naming the ROADMAP item that

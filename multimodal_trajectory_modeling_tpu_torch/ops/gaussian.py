@@ -99,7 +99,8 @@ def pattern_groups(x) -> tuple[np.ndarray, np.ndarray]:
     and one sort of short keys replaces ``np.unique``'s sort of whole
     boolean rows, which dominated the dense route's set-up at n=1e6."""
     fin = np.isfinite(np.atleast_2d(np.asarray(x)))
-    packed = np.packbits(fin, axis=1)
+    # contiguous rows for the void view (a strided x gives strided bits)
+    packed = np.ascontiguousarray(np.packbits(fin, axis=1))
     keys = packed.view(np.dtype((np.void, packed.shape[1]))).ravel()
     _keys, first, pattern_id = np.unique(keys, return_index=True, return_inverse=True)
     return fin[first], pattern_id.astype(np.int32).reshape(-1)

@@ -2342,3 +2342,59 @@ def test_train_em_markov_precompute_off_longT_cuda_f64_matches_cpu(cuda):
         assert torch.equal(a_g.cpu(), a_c)
         for x_c, x_g in zip(p_c, p_g):
             np.testing.assert_allclose(x_g.cpu().numpy(), x_c.numpy(), rtol=1e-8, atol=1e-8)
+
+
+@pytest.mark.parametrize("dtype", [torch.float64, torch.float32])
+def test_statespace_api_and_the_lg_component_launch_k12(cuda, dtype):
+    """The function API's hot kernel and the linear-Gaussian component's
+    score take K12 once a call on the card, with the CPU's grouped form's
+    values (float64 1e-10 relative, float32 1e-4·(1 + |ll|))."""
+    from multimodal_trajectory_modeling_tpu_torch.models import statespace_api as ssapi
+    from multimodal_trajectory_modeling_tpu_torch.models.linear_gaussian import StateSpaceLinearGaussian
+
+    rng = np.random.default_rng(20)
+    T, n, d, l = 4, 571, 2, 4
+    z, x = rng.normal(size=(T, n, d)), rng.normal(size=(T, n, l))
+    z[rng.random(z.shape) < 0.1] = np.nan
+    x[rng.random(x.shape) < 0.1] = np.nan
+    x[0, 3, 1] = np.inf
+    on_card = StateSpaceLinearGaussian(alpha=1.0, device="cuda", dtype=dtype).fit((z, x))
+    on_cpu = StateSpaceLinearGaussian(alpha=1.0, device="cpu", dtype=dtype).fit((z, x))
+    before = ek.estep_logliks_pallas.launches
+    got = on_card.score()
+    assert ek.estep_logliks_pallas.launches == before + 1
+    want = on_cpu.score()
+    tol = 1e-10 * np.maximum(np.abs(want), 1.0) if dtype == torch.float64 else 1e-4 * (1 + np.abs(want))
+    assert np.isfinite(got).all() and (np.abs(got - want) <= tol).all()
+    got_alt = on_card.score_alt()
+    assert ek.estep_logliks_pallas.launches == before + 2
+    np.testing.assert_array_equal(got_alt.astype(float), got)
+    v, mean, cov = ssapi._pack(z, x), *on_card._moments(T)
+    p = np.empty(n)
+    ssapi.multivariate_normal_log_likelihood(v, mean, cov, p, device="cuda", dtype=dtype)
+    assert ek.estep_logliks_pallas.launches == before + 3
+    np.testing.assert_array_equal(p, got)
+
+
+@pytest.mark.parametrize("stream_threshold", [10**9, 300])
+def test_knn_device_paths_on_the_card(cuda, monkeypatch, stream_threshold):
+    """``KNNRegressor`` past its work threshold on the card (dense, or
+    streaming past 300 training rows): float64 within 1e-9 of the host
+    path, and on duplicated training rows the lower training index."""
+    from multimodal_trajectory_modeling_tpu_torch.ops import knn
+
+    monkeypatch.setattr(knn, "_DEVICE_WORK_THRESHOLD", 1)
+    monkeypatch.setattr(knn, "_STREAM_TRAIN_THRESHOLD", stream_threshold)
+    rng = np.random.default_rng(21)
+    X, Y, Q = rng.normal(size=(1000, 5)), rng.normal(size=(1000, 3)), rng.normal(size=(300, 5))
+    got = knn.KNNRegressor(10, device="cuda", dtype=torch.float64).fit(X, Y).predict(Q)
+    np.testing.assert_allclose(got, knn._knn_predict_np(X, Y, Q, 10), rtol=1e-9, atol=1e-9)
+    base = X[:400]
+    Xd = np.concatenate([base, base, base])
+    Yd = rng.normal(size=(1200, 3))
+    Qd = base[:100] + 0.0
+    d2 = ((Qd[:, None, :] - Xd[None]) ** 2).sum(-1)
+    order = np.argsort(d2, axis=1, kind="stable")
+    for k in (1, 2, 5):
+        got = knn.KNNRegressor(k, device="cuda", dtype=torch.float64).fit(Xd, Yd).predict(Qd)
+        np.testing.assert_allclose(got, Yd[order[:, :k]].mean(1), rtol=1e-12, atol=1e-12)
