@@ -55,16 +55,23 @@ What is ported so far:
   ``StateSpaceMixtureModel`` (hard EM over any component class, restarts
   in worker processes, the gzip cache) and ``StateSpaceModelClassifier``.
   CPU parity: ``python -m pytest tests/test_torch_statespace_api.py
-  tests/test_torch_knn.py tests/test_torch_extended.py``.
+  tests/test_torch_knn.py tests/test_torch_extended.py``;
+- the scale-out and runtime layer: out-of-core Markov training
+  (``em.train_em_markov_outofcore``, ``MTM_MARKOV_OOC=1``: Φ chunks in
+  pinned host memory streamed through K1), the data-parallel and
+  restart-parallel trainers on ``torch.distributed`` process groups
+  (``parallel/mesh.py``, ``parallel/sharded_em.py``; ``mesh=`` of the
+  pool, ``MTM_MULTICHIP=1`` of the multistart), step checkpoints
+  (``utils/checkpoint.py``), the profiler hook (``utils/trace.profile``),
+  the samplers (``ops/samplers.py``) and ``config.py``.
 
-The kernels are hand-written CUDA (sources in ``csrc/``).  Every other
-route (out-of-core and data-parallel training) raises ``NotImplementedError`` naming the ROADMAP item that
-will bring it.
+The kernels are hand-written CUDA (sources in ``csrc/``).  bfloat16 Φ
+storage (``MTM_MARKOV_PHI=bf16``) raises ``NotImplementedError``.
 
-Devices are explicit: public entry points take ``device=`` (default
-``"cuda"``, the card; the tests pass ``device="cpu"``) and ``dtype=``
-(default float64 on the CPU, float32 on CUDA).  Nothing moves work
-between devices on its own.
+Devices are explicit: public entry points take ``device=`` (default the
+process default, the card unless ``config.use_cpu_x64()`` chose the CPU;
+the tests pass ``device="cpu"``) and ``dtype=`` (default float64 on the
+CPU, float32 on CUDA).  Nothing moves work between devices on its own.
 """
 
 from multimodal_trajectory_modeling_tpu_torch.device import (

@@ -32,7 +32,7 @@ def _as3d(data):
 class StateSpaceModelClassifier:
     """p(data | class) learned as one state-space model per class."""
 
-    def __init__(self, component_model, *, device="cuda", dtype=None):
+    def __init__(self, component_model, *, device=None, dtype=None):
         self.component_model = component_model
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)

@@ -10,8 +10,9 @@ trajectories): ``MixtureParams`` and the status codes (:93-118),
 ``_resolve_phi_store`` (:580), ``_markov_features`` (:614),
 ``emstep_markov`` (:705), ``complete_data_loglik_markov`` (:1066),
 ``suffix_logliks_markov`` (:1175, both forms), ``model_loglik_markov``
-(:1209), ``_em_termination`` (:1236), ``train_em_markov`` (:1754), and
-the multistart engine:
+(:1209), ``_em_termination`` (:1236), ``train_em_markov`` (:1754), the
+out-of-core trainer ``train_em_markov_outofcore`` (:1989, with
+``_ooc_featurize`` :1925), and the multistart engine:
 ``_tree_select_rows`` (:2161), ``emstep_markov_multi`` (:2172),
 ``train_em_markov_multi`` (:2261), ``_pool_window_protocol`` (:2358),
 ``_pool_window`` (:2414), ``_run_slot_pool`` (:2464),
@@ -60,7 +61,11 @@ card, or past the dense size the O(T) filters.  The JAX
 package traces each loop into one ``while_loop`` or ``fori_loop``; here a
 single fit is a Python loop that reads one status scalar from the device
 per iteration, and the slot pool runs ``sync_every`` passes per window
-with one status read per window.
+with one status read per window.  The out-of-core trainer keeps Φ in
+pinned host memory and streams it through K1 a chunk at a time; the
+data-parallel trainers (``parallel/sharded_em.py``) call these functions
+on each rank's block with a ``reduce`` hook that all-reduces the kernels'
+statistics.
 
 Row-vector convention: ``z' = z A``, ``x = z H``.
 """
@@ -131,6 +136,7 @@ __all__ = [
     "train_em",
     "train_em_markov",
     "train_em_markov_multi",
+    "train_em_markov_outofcore",
     "train_em_markov_pool",
     "train_em_masked_kalman",
     "train_em_masked_kalman_pool",
@@ -163,7 +169,7 @@ class MixtureParams(NamedTuple):
         return self.pi.shape[0]
 
 
-def mixture_params_from_numpy(params, *, device="cuda", dtype=None):
+def mixture_params_from_numpy(params, *, device=None, dtype=None):
     """:class:`MixtureParams` on ``device`` (the card unless the caller
     asks for the CPU) from the seven fields (pi, m, S, A, G, H, L) as
     arrays — numpy, or anything ``np.asarray`` takes, such as the JAX
@@ -350,6 +356,8 @@ def emstep_markov(
     assign_mode: str = "argmax",
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
+    reduce=None,
+    n_total: int = None,
 ):
     """One EM iteration: ``(new_params, assign, counts, switches)``, from
     Φ (K1) or, without Φ, from the packed batch ``u`` (K4a) or at long T
@@ -357,27 +365,35 @@ def emstep_markov(
     the grouped weights; ``em.py:794-815``), whose row order
     ``prev_assign`` and the returned assignment then follow.
     ``assign_mode="prev"`` is the initial M step (statistics under
-    ``prev_assign``, no E step)."""
+    ``prev_assign``, no E step).  The data-parallel trainers
+    (``parallel.sharded_em``) pass ``reduce``, their all-reduce over the
+    ranks, applied to the kernel's statistics, counts and switches before
+    the M solve (to K1's before the unfolding, so int16 statistics sum as
+    exact integers), and the global instance count ``n_total`` (default
+    ``lens``' length)."""
     d = params.m.shape[1]
     l = params.H.shape[2]
     if phi is not None:
         assign, counts, switches, g, _obj = mk.markov_em_from_features(
-            phi, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode
-        )
-    elif isinstance(u, mk.RawBatch):
-        assign, counts, switches, g, _obj = mk.markov_em_fused_longT(
-            u.z_t, u.x_t, u.lens, prev_assign, *_grouped_weights(params), T=T, d=d, l=l,
-            assign_mode=assign_mode, plan=u.plan,
-        )
-    elif u is not None:
-        assign, counts, switches, g, _obj = mk.markov_em_fused_packed(
-            u, lens, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode
+            phi, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode,
+            reduce=reduce,
         )
     else:
-        raise ValueError("emstep_markov needs phi or the packed batch u")
-    new_params = _msolve(
-        g, counts, lens.shape[0], d, l, reg_mode=reg_mode, alpha=alpha
-    )
+        if isinstance(u, mk.RawBatch):
+            assign, counts, switches, g, _obj = mk.markov_em_fused_longT(
+                u.z_t, u.x_t, u.lens, prev_assign, *_grouped_weights(params), T=T, d=d, l=l,
+                assign_mode=assign_mode, plan=u.plan,
+            )
+        elif u is not None:
+            assign, counts, switches, g, _obj = mk.markov_em_fused_packed(
+                u, lens, prev_assign, _weights(params), T=T, d=d, l=l, assign_mode=assign_mode
+            )
+        else:
+            raise ValueError("emstep_markov needs phi or the packed batch u")
+        if reduce is not None:
+            g, counts, switches = reduce(g, counts, switches)
+    n = lens.shape[0] if n_total is None else n_total
+    new_params = _msolve(g, counts, n, d, l, reg_mode=reg_mode, alpha=alpha)
     return new_params, assign, counts, switches
 
 
@@ -468,6 +484,214 @@ def train_em_markov(
     if rows is not None:
         assign = torch.empty_like(assign).index_copy_(0, rows, assign)
     return params, assign, it, status
+
+
+# ----------------------------------------------------------------------
+# Out-of-core Markov training: Φ in host memory, streamed a chunk at a time
+# ----------------------------------------------------------------------
+
+
+def _ooc_featurize(z_c, x_c, lens_c, *, store):
+    """Φ of one instance chunk on the device (K2; past T·s = 512 the
+    canonical Φ, K5), quantized with the chunk's own per-row scales under
+    ``store="i16"`` (``em.py:1925``).  The packed batch is dropped before
+    the quantization, which works on Φ in place (the bits of
+    ``quantize_phi``), so the chunk's device memory peaks at its raw batch,
+    packed batch and wide Φ."""
+    u, phi = _markov_features(
+        z_c, x_c, lens_c, precompute=True, phi_store="wide", longT_always_phi=True
+    )
+    del u
+    if store != "i16":
+        return phi
+    # max |Φ| of each row without an |Φ| temporary: the same values
+    amax = torch.maximum(phi.amax(dim=1), -phi.amin(dim=1))
+    scale = mk.phi_scale_from_absmax(amax, phi.dtype)
+    q = phi.mul_((1.0 / scale)[:, None]).round_().to(torch.int16)
+    return mk.PhiQuant(q, scale)
+
+
+def _host_copy(t: torch.Tensor, pin: bool) -> torch.Tensor:
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin)
+    return out.copy_(t)
+
+
+class _ChunkStream:
+    """Chunks of host Φ (and each chunk's previous assignment) streamed
+    to the device through two fixed device buffers.  On CUDA the
+    host-to-device copies run on their own stream from pinned memory:
+    ``ship(i)`` issues chunk i's copies there once the compute stream has
+    released the buffer (the event recorded by ``release`` after the K1
+    launch that read it two chunks before), and ``take(i)`` makes the
+    compute stream wait for them.  On the CPU the host chunks are used
+    in place."""
+
+    def __init__(self, chunks, bounds, device):
+        self.chunks, self.bounds = chunks, bounds
+        self.cuda = device.type == "cuda"
+        self.views = [None, None]
+        if not self.cuda:
+            return
+        first = chunks[0]  # the widest chunk: only the last is ragged
+        parts = list(first) if isinstance(first, mk.PhiQuant) else [first]
+        width = bounds[0][1] - bounds[0][0]
+        self.bufs = [
+            [torch.empty(p.numel(), dtype=p.dtype, device=device) for p in parts]
+            + [torch.empty(width, dtype=torch.int32, device=device)]
+            for _ in range(min(2, len(chunks)))
+        ]
+        self.copy_stream = torch.cuda.Stream(device)
+        self.copied = [torch.cuda.Event() for _ in self.bufs]
+        self.free = [None] * len(self.bufs)
+
+    def ship(self, i, prev_host):
+        s, e = self.bounds[i]
+        k = i % 2
+        if not self.cuda:
+            self.views[k] = (self.chunks[i], prev_host[s:e])
+            return
+        chunk = self.chunks[i]
+        parts = list(chunk) if isinstance(chunk, mk.PhiQuant) else [chunk]
+        with torch.cuda.stream(self.copy_stream):
+            if self.free[k] is not None:
+                self.copy_stream.wait_event(self.free[k])
+            dst = [
+                b[: p.numel()].view(p.shape).copy_(p, non_blocking=True)
+                for b, p in zip(self.bufs[k], parts)
+            ]
+            prev = self.bufs[k][-1][: e - s].copy_(prev_host[s:e], non_blocking=True)
+            self.copied[k].record(self.copy_stream)
+        phi = mk.PhiQuant(*dst) if isinstance(chunk, mk.PhiQuant) else dst[0]
+        self.views[k] = (phi, prev)
+
+    def take(self, i):
+        k = i % 2
+        if self.cuda:
+            torch.cuda.current_stream().wait_event(self.copied[k])
+        return self.views[k]
+
+    def release(self, i):
+        if self.cuda:
+            k = i % 2
+            self.free[k] = torch.cuda.Event()
+            self.free[k].record(torch.cuda.current_stream())
+
+
+def train_em_markov_outofcore(
+    params0: MixtureParams,
+    assign0,  # (n,) int, numpy or tensor
+    z,  # (T, n, d) HOST array, NaN-suffix-padded
+    x,  # (T, n, l) HOST array
+    lens,  # (n,) int observed prefix lengths
+    *,
+    n_steps: int = 100,
+    reg_mode: str = "lstsq",
+    alpha: float = 0.0,
+    min_members: int = 3,
+    chunk_cols: int = 1 << 20,
+    phi_store="env",  # "env" → MTM_MARKOV_PHI (i16 default for float32)
+):
+    """:func:`train_em_markov` for batches whose Φ exceeds device memory
+    (``em.py:1989``): Φ lives in host memory as per-chunk blocks and every
+    EM pass streams the chunks through K1, summing the statistics, counts
+    and switches on the device in chunk order before one M solve.  The
+    device and compute dtype are ``params0``'s.
+
+    Each chunk's Φ is built on the device once (:func:`_ooc_featurize`: K2,
+    or at long T K5) and pulled into pinned host memory: the int16 payload
+    with the chunk's OWN per-row scales (so in int16 mode the fit is not
+    the in-core fit; the JAX package's rule), or the wide Φ.  A pass ships
+    chunk i+1 on a copy stream before chunk i's K1 is launched; at most
+    two chunk buffers live on the device; the assignments come back into
+    pinned host buffers; the one host read a pass is the host mirror of
+    :func:`_em_termination`.  Throughput is bound by the host-to-device
+    link, not by device memory bandwidth: this path trades speed for
+    capacity.  With wide Φ the trajectory is the in-core one (assignments,
+    iterations and status exactly; parameters up to the cross-chunk
+    summation order).  JAX's ``_ooc_weights``, ``_ooc_chunk_step`` and
+    ``_ooc_msolve`` (jitted units there) are :func:`_weights`,
+    ``mk.markov_em_from_features`` and :func:`_msolve` here.
+
+    Returns ``(params, assign ((n,) int32 host tensor), iters, status)``."""
+    z = np.asarray(z)
+    x = np.asarray(x)
+    T, n, d = z.shape
+    l = x.shape[-1]
+    C = params0.pi.shape[0]
+    dev, dt = params0.pi.device, params0.pi.dtype
+    if isinstance(phi_store, str) and phi_store == "env":
+        phi_store = _resolve_phi_store(dt)
+    lens_np = np.asarray(lens, np.int32)
+    assign0_np = (
+        assign0.cpu().numpy() if isinstance(assign0, torch.Tensor) else np.asarray(assign0)
+    ).astype(np.int32)
+    if np.bincount(assign0_np, minlength=C).min() <= min_members:
+        return params0, torch.from_numpy(assign0_np), 0, STATUS_INIT_ABORT
+    pin = dev.type == "cuda"
+    width = int(chunk_cols)
+    bounds = [(s, min(s + width, n)) for s in range(0, n, width)]
+
+    # the featurization pass: each chunk's Φ built on the device, pulled to
+    # host memory, its device buffers dropped before the next chunk
+    def on_device(a):
+        # the (T, w, k) block shipped as (T, k, w): the featurization's
+        # transposed batch is then a view, not a second copy on the device
+        return torch.from_numpy(np.ascontiguousarray(a.transpose(0, 2, 1))).to(dev, dt).permute(0, 2, 1)
+
+    chunks = []
+    for s, e in bounds:
+        phi_dev = _ooc_featurize(
+            on_device(z[:, s:e]), on_device(x[:, s:e]), torch.as_tensor(lens_np[s:e], device=dev),
+            store=phi_store,
+        )
+        if isinstance(phi_dev, mk.PhiQuant):
+            chunks.append(mk.PhiQuant(*(_host_copy(t, pin) for t in phi_dev)))
+        else:
+            chunks.append(_host_copy(phi_dev, pin))
+        del phi_dev
+    stream = _ChunkStream(chunks, bounds, dev)
+    prev_host = _host_copy(torch.from_numpy(assign0_np), pin)
+    new_host = torch.empty_like(prev_host, pin_memory=pin)
+
+    def one_pass(params, mode):
+        """Every chunk through K1; returns ``(counts, switches, g)`` summed
+        in chunk order, the new assignment in ``new_host`` (synchronized
+        by the caller's host read)."""
+        Wg = _weights(params)
+        tot = None
+        stream.ship(0, prev_host)
+        for i, (s, e) in enumerate(bounds):
+            if i + 1 < len(bounds):
+                stream.ship(i + 1, prev_host)
+            phi_c, prev_c = stream.take(i)
+            a, c, sw, g, _obj = mk.markov_em_from_features(phi_c, prev_c, Wg, T=T, d=d, l=l, assign_mode=mode)
+            stream.release(i)
+            new_host[s:e].copy_(a, non_blocking=pin)
+            tot = (c, sw, g) if tot is None else (tot[0] + c, tot[1] + sw, tot[2] + g)
+        return tot
+
+    # the initial M step under the given assignment (its assignment is
+    # prev itself)
+    counts_m, _, g_m = one_pass(params0, "prev")
+    params = _msolve(g_m, counts_m, n, d, l, reg_mode=reg_mode, alpha=alpha)
+    status = STATUS_RUNNING
+    iters = 0
+    for _ in range(n_steps):
+        counts, switches, g = one_pass(params, "argmax")
+        # the one host read a pass: switches and counts (it also waits for
+        # the assignments' copies into new_host)
+        host = torch.cat([switches.reshape(1).to(counts.dtype), counts]).cpu()
+        iters += 1
+        prev_host, new_host = new_host, prev_host
+        # host mirror of _em_termination (convergence wins the tie)
+        if int(host[0]) == 0:
+            status = STATUS_CONVERGED
+            break
+        if int(host[1:].min()) <= min_members:
+            status = STATUS_EMPTY_CLUSTER
+            break
+        params = _msolve(g, counts, n, d, l, reg_mode=reg_mode, alpha=alpha)
+    return params, prev_host, iters, status
 
 
 def complete_data_loglik_markov(
@@ -610,13 +834,16 @@ def emstep_markov_multi(
     reg_mode: str = "lstsq",
     alpha: float = 0.0,
     phi=None,  # (Fc_pad, n) tensor or PhiQuant — shared
+    reduce=None,
+    n_total: int = None,
 ):
     """One EM iteration for R independent restarts over one batch:
     ``(new_params, assign (R, n), counts (R, C), switches (R,), obj
     (R,))``, from Φ (K3) or, without Φ, from the packed batch (K4b).
     ``force_prev`` puts single slots in prev mode for this pass (a pool
     insertion's initial M step).  The M solves of all R·C clusters run as
-    one C-batched solve of R·C clusters (the JAX package ``vmap``s them)."""
+    one C-batched solve of R·C clusters (the JAX package ``vmap``s them).
+    ``reduce`` and ``n_total`` are :func:`emstep_markov`'s."""
     R, C = params.pi.shape
     d = params.m.shape[2]
     l = params.H.shape[3]
@@ -624,19 +851,21 @@ def emstep_markov_multi(
     if phi is not None:
         assign, counts, switches, g, obj = mk.markov_em_from_features_multi(
             phi, lens, prev_assign, Wg, T=T, d=d, l=l,
-            assign_mode=assign_mode, force_prev=force_prev,
+            assign_mode=assign_mode, force_prev=force_prev, reduce=reduce,
         )
     elif u is not None:
         assign, counts, switches, g, obj = mk.markov_em_fused_packed_multi(
             u, lens, prev_assign, Wg, T=T, d=d, l=l,
             assign_mode=assign_mode, force_prev=force_prev,
         )
+        if reduce is not None:
+            g, counts, switches = reduce(g, counts, switches)
     else:
         raise ValueError("emstep_markov_multi needs phi or the packed batch u")
     F = g.shape[1]
     flat = _msolve(
         g.permute(1, 0, 2).reshape(F, R * C), counts.reshape(R * C),
-        lens.shape[0], d, l, reg_mode=reg_mode, alpha=alpha,
+        lens.shape[0] if n_total is None else n_total, d, l, reg_mode=reg_mode, alpha=alpha,
     )
     new_params = MixtureParams(*(p.reshape(R, C, *p.shape[1:]) for p in flat))
     return new_params, assign, counts, switches, obj
@@ -698,14 +927,17 @@ def train_em_markov_multi(
     return params, assign, iters, status
 
 
-def _pool_window_protocol(emstep_fn, K, state0, *, n_steps, min_members):
+def _pool_window_protocol(emstep_fn, K, state0, *, n_steps, min_members, assign_mask=None):
     """K passes of the slot-pool protocol, with no device→host read: each
     pass runs ``emstep_fn(params, assigns, force) -> (new_params,
     new_assign, counts, switches)`` on every slot; terminal or capped
     slots stay frozen, a ``force`` slot takes its initial prev-M step on
     its first active pass (not counted as an iteration), and every other
     active slot takes one counted iteration under
-    :func:`_em_termination`."""
+    :func:`_em_termination`.  ``assign_mask`` (an (n,) bool) also freezes
+    the lanes it leaves out: the data-parallel window's pad lanes stay
+    -1 (the kernels mark their own outputs there C)."""
+    upd_mask = None if assign_mask is None else assign_mask[None, :]
     params, assigns, status, iters, force = state0
     for _ in range(K):
         new_params, new_assign, counts, switches = emstep_fn(params, assigns, force)
@@ -717,7 +949,8 @@ def _pool_window_protocol(emstep_fn, K, state0, *, n_steps, min_members):
         )
         take_new = (active & fp) | (stepped & advance)  # prev-M or EM update
         params = _tree_select_rows(take_new, new_params, params)
-        assigns = torch.where(active[:, None], new_assign, assigns)
+        upd = active[:, None] if upd_mask is None else active[:, None] & upd_mask
+        assigns = torch.where(upd, new_assign, assigns)
         status = torch.where(stepped, status_new, status)
         iters = iters + stepped.to(torch.int32)
         force = torch.where(active & fp, 0, force)
@@ -758,16 +991,19 @@ def _pool_window(
 
 
 def _run_slot_pool(
-    window, params_list, assign_list, *, R, C, n, n_steps, min_members, device
+    window, params_list, assign_list, *, R, C, n, n_steps, min_members, device, n_state=None
 ):
     """The host scheduler of the slot pool: R device slots, each refilled
     with the next candidate the moment its occupant terminates or reaches
     ``n_steps``.  A candidate that fails the init guard is recorded at
     once (status 3, no iteration); refills go to the device as one batched
     update per state tensor; the host reads the slots' status and
-    iterations once per window.  Returns ``(results, windows, reads)``:
-    ``[(params, assign (n,), iters, status), ...]`` in candidate order,
-    and the window and host-read counts."""
+    iterations once per window.  ``n_state`` (default ``n``) is the lane
+    count of the assignment state: the data-parallel window pads the
+    lanes, and pad lanes ride as -1.  Returns ``(results, windows,
+    reads)``: ``[(params, assign (n,), iters, status), ...]`` in candidate
+    order, and the window and host-read counts."""
+    n_state = n if n_state is None else n_state
     n_cand = len(params_list)
     results = [None] * n_cand
     next_cand = 0
@@ -795,7 +1031,7 @@ def _run_slot_pool(
 
     slot_cand = [-1] * R  # candidate index, -1 = drained
     stack = stack_params([params_list[0]] * R)
-    assigns = torch.full((R, n), -1, dtype=torch.int32, device=device)
+    assigns = torch.full((R, n_state), -1, dtype=torch.int32, device=device)
     status = torch.full((R,), STATUS_CONVERGED, dtype=torch.int32, device=device)
     iters = torch.zeros((R,), dtype=torch.int32, device=device)
     force = torch.zeros((R,), dtype=torch.int32, device=device)
@@ -821,7 +1057,9 @@ def _run_slot_pool(
         stack = MixtureParams(
             *(s.index_put(rj, p) for s, p in zip(stack, stack_params(take_params)))
         )
-        assigns = assigns.index_put(rj, torch.as_tensor(np.stack(take_assigns), device=device))
+        rows = np.full((len(take_rows), n_state), -1, np.int32)
+        rows[:, :n] = np.stack(take_assigns)
+        assigns = assigns.index_put(rj, torch.as_tensor(rows, device=device))
         status = status.index_put(rj, torch.tensor(STATUS_RUNNING, dtype=torch.int32, device=device))
         iters = iters.index_put(rj, torch.tensor(0, dtype=torch.int32, device=device))
         force = force.index_put(rj, torch.tensor(1, dtype=torch.int32, device=device))
@@ -842,7 +1080,7 @@ def _run_slot_pool(
             capped = status_h[r] == STATUS_RUNNING and iters_h[r] >= n_steps
             if not (terminal or capped):
                 continue
-            results[slot_cand[r]] = (slots[r], assigns[r], int(iters_h[r]), int(status_h[r]))
+            results[slot_cand[r]] = (slots[r], assigns[r, :n], int(iters_h[r]), int(status_h[r]))
             done_rows.append(r)
         if done_rows:
             refill(done_rows)
@@ -884,26 +1122,33 @@ def train_em_markov_pool(
     the results come back in candidate order: ``([(params, assign (n,)
     int32 tensor, iters, status), ...], PoolStats)``.  Φ is materialized
     once for the pool (``MTM_MARKOV_PRECOMP`` as in
-    :func:`train_em_markov`; at long T always, in the canonical layout)."""
-    if mesh is not None:
-        raise NotImplementedError(
-            "the data-parallel pool (mesh=) is not ported (ROADMAP Queue 1, "
-            "item 9)"
-        )
+    :func:`train_em_markov`; at long T always, in the canonical layout).
+
+    With ``mesh=`` (a :class:`..parallel.mesh.Mesh` with a ``"data"``
+    axis; every rank of it calls this with the same arguments) each
+    window runs data-parallel (:func:`..parallel.sharded_em.pool_window_for_mesh`):
+    every rank holds all R slots' parameters and its block of the lanes,
+    and each pass all-reduces the slots' statistics, counts and switches;
+    the scheduling, candidate order and results are unchanged, equal to
+    the one-rank pool up to the reduction's summation order."""
     T, n = z.shape[0], z.shape[1]
     C = params_list[0].pi.shape[0]
     R = max(1, min(R, len(params_list)))
     K = max(1, int(sync_every))
     lens = lens.to(torch.int32)
-    u, phi = _markov_features(z, x, lens, u=u, longT_always_phi=True)
-    if phi is not None:
-        u = None  # Φ carries the passes
+    fit = dict(K=K, n_steps=n_steps, reg_mode=reg_mode, alpha=float(alpha), min_members=min_members)
+    if mesh is not None:
+        from multimodal_trajectory_modeling_tpu_torch.parallel import sharded_em
 
-    def window(*state):
-        return _pool_window(
-            *state, lens, u, phi, T=T, K=K, n_steps=n_steps,
-            reg_mode=reg_mode, alpha=float(alpha), min_members=min_members,
-        )
+        window, n_state = sharded_em.pool_window_for_mesh(z, x, lens, mesh=mesh, u=u, **fit)
+    else:
+        n_state = n
+        u, phi = _markov_features(z, x, lens, u=u, longT_always_phi=True)
+        if phi is not None:
+            u = None  # Φ carries the passes
+
+        def window(*state):
+            return _pool_window(*state, lens, u, phi, T=T, **fit)
 
     if z.device.type == "cuda":
         torch.cuda.synchronize(z.device)
@@ -912,7 +1157,7 @@ def train_em_markov_pool(
     # stops with the pool's work done
     results, windows, reads = _run_slot_pool(
         window, params_list, assign_list, R=R, C=C, n=n, n_steps=n_steps,
-        min_members=min_members, device=z.device,
+        min_members=min_members, device=z.device, n_state=n_state,
     )
     return results, PoolStats(windows, reads, time.perf_counter() - t0)
 

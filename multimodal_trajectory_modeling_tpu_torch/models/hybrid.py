@@ -39,7 +39,7 @@ class StateSpaceHybrid(StateSpaceModel):
         n_neighbors: int | list = 10,
         n_folds: int = 3,
         alpha: float = 0.0,
-        device="cuda",
+        device=None,
         dtype=None,
     ):
         super().__init__(device=device, dtype=dtype)

@@ -50,7 +50,7 @@ class StateSpaceKNN(StateSpaceModel):
     """State-space model with cross-validated k-NN mean models and
     homoskedastic covariances; allows for non-linearities."""
 
-    def __init__(self, n_neighbors: int | list = 10, n_folds: int = 3, *, device="cuda", dtype=None):
+    def __init__(self, n_neighbors: int | list = 10, n_folds: int = 3, *, device=None, dtype=None):
         super().__init__(device=device, dtype=dtype)
         self.n_neighbors = (
             n_neighbors if isinstance(n_neighbors, list) else [n_neighbors]

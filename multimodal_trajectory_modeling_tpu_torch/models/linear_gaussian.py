@@ -28,7 +28,7 @@ class StateSpaceLinearGaussian(StateSpaceModel):
     """Linear Gaussian state-space model; also known as a Linear Dynamical
     System / Kalman-type model."""
 
-    def __init__(self, alpha: float = 0.0, *, device="cuda", dtype=None):
+    def __init__(self, alpha: float = 0.0, *, device=None, dtype=None):
         super().__init__(device=device, dtype=dtype)
         self.alpha = alpha if alpha > 2 * np_eps else 0
 

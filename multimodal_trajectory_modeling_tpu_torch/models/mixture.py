@@ -58,6 +58,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from multimodal_trajectory_modeling_tpu_torch.device import (
     resolve_device,
@@ -71,6 +72,8 @@ from multimodal_trajectory_modeling_tpu_torch.ops import kalman_kernels as kk
 from multimodal_trajectory_modeling_tpu_torch.ops import markov_kernels as mk
 from multimodal_trajectory_modeling_tpu_torch.ops import moments as jmom
 from multimodal_trajectory_modeling_tpu_torch.ops import regression as rops
+from multimodal_trajectory_modeling_tpu_torch.parallel import sharded_em
+from multimodal_trajectory_modeling_tpu_torch.parallel.mesh import make_mesh
 from multimodal_trajectory_modeling_tpu_torch.utils import state_space as ssu
 from multimodal_trajectory_modeling_tpu_torch.utils.trace import EMTrace
 
@@ -109,7 +112,7 @@ class MMLinGaussSS_marginalizable:
         init: str = "random",
         alpha: float = 0.0,
         *,
-        device="cuda",
+        device=None,
         dtype: torch.dtype | None = None,
     ):
         self.device = resolve_device(device)
@@ -484,7 +487,7 @@ class MMLinGaussSS_marginalizable:
         file: str | os.PathLike,
         training_data: dict = None,
         *,
-        device="cuda",
+        device=None,
         dtype: torch.dtype | None = None,
     ):
         """A model from a pickle of :meth:`to_pickle` (of either package),
@@ -791,13 +794,13 @@ class MMLinGaussSS_marginalizable:
     # ------------------------------------------------------------------
 
     @staticmethod
-    def regress(input_exogenous, output_endogenous, *, device="cuda", dtype=None):
+    def regress(input_exogenous, output_endogenous, *, device=None, dtype=None):
         """``Y | X ~ N(X A, S)`` by least squares over the rows with no
         NaN: ``(A, S)`` as float64 arrays."""
         return _regress(input_exogenous, output_endogenous, "lstsq", 0.0, device, dtype)
 
     @staticmethod
-    def regress_alpha(input_exogenous, output_endogenous, alpha, *, device="cuda", dtype=None):
+    def regress_alpha(input_exogenous, output_endogenous, alpha, *, device=None, dtype=None):
         """:meth:`regress` with a ridge ``alpha``."""
         return _regress(input_exogenous, output_endogenous, "ridge", alpha, device, dtype)
 
@@ -845,16 +848,16 @@ class MMLinGaussSS_marginalizable:
         the raw batch).  ``verbose=True`` takes the host-stepped loop
         (:meth:`E_step`, :meth:`M_step`, the objective printed after every
         M step as the reference prints it, an :class:`EMTrace` in
-        ``last_trace``) and ignores ``fast``.  ``MTM_MARKOV_OOC=1`` raises
-        ``NotImplementedError``."""
+        ``last_trace``) and ignores ``fast``.  ``fast=True`` under
+        ``MTM_MARKOV_OOC=1`` on suffix data streams Φ from host memory
+        (:meth:`_train_markov_outofcore`)."""
         if verbose:
             return self._train_verbose(n_steps=n_steps)
-        if fast and os.environ.get("MTM_MARKOV_OOC") == "1":
-            raise NotImplementedError(
-                "MTM_MARKOV_OOC=1, out-of-core training, is not ported "
-                "(ROADMAP Queue 1, item 9)"
-            )
         reg_mode = "ridge" if self.alpha > 2 * np_eps else "lstsq"
+        if fast and os.environ.get("MTM_MARKOV_OOC") == "1":
+            ooc = self._train_markov_outofcore(n_steps=n_steps, reg_mode=reg_mode)
+            if ooc is not None:
+                return ooc
         fit = dict(n_steps=n_steps, reg_mode=reg_mode, alpha=float(self.alpha))
 
         assign0 = self._on_device(self.cluster_assignment, torch.int32)
@@ -892,6 +895,38 @@ class MMLinGaussSS_marginalizable:
             return self
         self._set_params(params)
         self.cluster_assignment = assign.cpu().numpy()
+        self.last_trained = _now()
+        return self
+
+    def _train_markov_outofcore(self, *, n_steps: int, reg_mode: str):
+        """The ``MTM_MARKOV_OOC=1`` route of :meth:`train`'s fast path
+        (``mixture.py:923``): suffix-missingness EM with Φ streamed from
+        host memory (:func:`em.train_em_markov_outofcore`), so the device
+        holds at most two chunks of Φ; the batch stays on the host and no
+        device copy is cached.  Returns ``None`` when the missingness is
+        not a pure suffix, so :meth:`train` falls through to its in-core
+        routes.  ``MTM_MARKOV_OOC_CHUNK`` sets the chunk width (instances
+        a streamed block, default 2²⁰)."""
+        lens = self._suffix_instance_lens(self.states, self.observations)
+        if lens is None:
+            return None
+        chunk = int(os.environ.get("MTM_MARKOV_OOC_CHUNK", str(1 << 20)))
+        params, assign, iters, status = em.train_em_markov_outofcore(
+            self._stacked_params(),
+            np.asarray(self.cluster_assignment, np.int32),
+            self.states,
+            self.observations,
+            lens,
+            n_steps=n_steps,
+            reg_mode=reg_mode,
+            alpha=float(self.alpha),
+            chunk_cols=chunk,
+        )
+        self.last_iterations, self.last_status = iters, status
+        if status == em.STATUS_INIT_ABORT:
+            return self  # the reference returns before stamping last_trained
+        self._set_params(params)
+        self.cluster_assignment = assign.numpy().copy()
         self.last_trained = _now()
         return self
 
@@ -1017,8 +1052,16 @@ class MMLinGaussSS_marginalizable:
         ``verbose=True`` trains the candidates one after another through
         ``train(verbose=True)``, with the reference's transcript, and
         ranks them by :meth:`e_complete_data_log_lik` (a candidate whose
-        training raises is skipped).  ``MTM_MULTICHIP=1`` on several cards
-        raises ``NotImplementedError``."""
+        training raises is skipped).
+
+        ``MTM_MULTICHIP=1`` in an initialized ``torch.distributed`` group
+        of more than one rank (every rank calls this with the same data):
+        the slot pool's windows run data-parallel over the group
+        (:func:`em.train_em_markov_pool` with ``mesh=``), and the masked
+        trainer's candidates one after another through
+        :func:`..parallel.sharded_em.train_em_masked_kalman_shardmap`
+        where the ranks divide n (``mixture.py:1187-1213``, ``:1302-1333``);
+        the ranks split the data, whatever the number of cards."""
         if use_cache:
             cached = self._load_cached(verbose)
             if cached is not None:
@@ -1030,16 +1073,14 @@ class MMLinGaussSS_marginalizable:
         r_fuse = int(os.environ.get("MTM_MULTISTART_FUSE", "32"))
         pooled = lens is not None and r_fuse > 1 and n_starts > 0 and not verbose
         packed_ok = em.markov_packed_ok(T, d, l)
+        group_mesh = None
         if (
-            pooled
-            and os.environ.get("MTM_MULTICHIP") == "1"
-            and self.device.type == "cuda"
-            and torch.cuda.device_count() > 1
+            os.environ.get("MTM_MULTICHIP") == "1"
+            and dist.is_available()
+            and dist.is_initialized()
+            and dist.get_world_size() > 1
         ):
-            raise NotImplementedError(
-                "the data-parallel pool (MTM_MULTICHIP=1) is not ported "
-                "(ROADMAP Queue 1, item 9)"
-            )
+            group_mesh = make_mesh()
         masked = fast and lens is None and self._takes_masked_filter_route()
         sorted_batch = (
             self._sorted_batch() if fast and lens is None and not masked and not verbose else None
@@ -1081,6 +1122,7 @@ class MMLinGaussSS_marginalizable:
                 lens_d,
                 R=r_fuse,
                 u=u,
+                mesh=group_mesh,
                 **fit,
             )
             # objectives (Σ max scores under a fresh E) in pool-sized groups
@@ -1113,6 +1155,15 @@ class MMLinGaussSS_marginalizable:
                     [np.asarray(c.cluster_assignment) for c in candidates],
                     z, x, R=r_fuse, packed=packed, **fit,
                 )
+            elif group_mesh is not None and self.n_data % group_mesh.size == 0:
+                # the masked trainer has no pad lanes: equal blocks only
+                results = [
+                    sharded_em.train_em_masked_kalman_shardmap(
+                        c._stacked_params(), self._on_device(c.cluster_assignment, torch.int32),
+                        z, x, mesh=group_mesh, **fit,
+                    )
+                    for c in candidates
+                ]
             else:
                 results = [
                     em.train_em_masked_kalman(

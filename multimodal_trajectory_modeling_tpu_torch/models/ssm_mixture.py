@@ -238,7 +238,7 @@ class StateSpaceMixtureModel:
         *,
         component_model_hyperparams: dict = dict(),
         rng: np.random.Generator = None,
-        device="cuda",
+        device=None,
         dtype=None,
     ):
         self.device = resolve_device(device)
@@ -562,7 +562,7 @@ class StateSpaceMixtureModel:
         file: str | os.PathLike,
         training_data: dict = None,
         *,
-        device="cuda",
+        device=None,
         dtype=None,
     ):
         """A mixture from a pickle of :meth:`to_pickle`, on ``device``.
@@ -695,7 +695,7 @@ def mixture_from_state(
     state: dict,
     *,
     component_model_hyperparams: dict = dict(),
-    device="cuda",
+    device=None,
     dtype=None,
 ) -> StateSpaceMixtureModel:
     """This package's trained mixture from :func:`mixture_state`'s dict,

@@ -70,7 +70,7 @@ def component_state(model) -> dict:
 class StateSpaceModel(metaclass=abc.ABCMeta):
     """Abstract base class for a state-space component model."""
 
-    def __init__(self, *, device="cuda", dtype=None):
+    def __init__(self, *, device=None, dtype=None):
         for slot in _COMPONENT_SLOTS:
             setattr(self, slot, None)
         self.device = resolve_device(device)
@@ -80,7 +80,7 @@ class StateSpaceModel(metaclass=abc.ABCMeta):
         return "State space model"
 
     @classmethod
-    def from_state(cls, state: dict, *, device="cuda", dtype=None, **hyperparams):
+    def from_state(cls, state: dict, *, device=None, dtype=None, **hyperparams):
         """A trained component from :func:`component_state`'s dict (of
         either package), built with ``hyperparams`` on ``device``."""
         model = cls(**hyperparams, device=device, dtype=dtype)

@@ -70,7 +70,7 @@ def _np(t: torch.Tensor) -> np.ndarray:
     return t.cpu().numpy()
 
 
-def mmZ(T: int, m, A, *, device="cuda", dtype=None) -> np.ndarray:
+def mmZ(T: int, m, A, *, device=None, dtype=None) -> np.ndarray:
     """Stacked latent mean (reference statespace:294-314)."""
     ctx = _ctx(device, dtype)
     A = np.atleast_2d(A)
@@ -78,7 +78,7 @@ def mmZ(T: int, m, A, *, device="cuda", dtype=None) -> np.ndarray:
     return _np(jmom.latent_means(T, _t(m, ctx), _t(A, ctx))).ravel()
 
 
-def mmX(T: int, m, A, H, *, device="cuda", dtype=None) -> np.ndarray:
+def mmX(T: int, m, A, H, *, device=None, dtype=None) -> np.ndarray:
     """Stacked observed mean (reference statespace:317-339)."""
     ctx = _ctx(device, dtype)
     A, H = map(np.atleast_2d, (A, H))
@@ -86,7 +86,7 @@ def mmX(T: int, m, A, H, *, device="cuda", dtype=None) -> np.ndarray:
     return _np(jmom.observed_mean(T, _t(m, ctx), _t(A, ctx), _t(H, ctx)))
 
 
-def mm(T: int, m, A, H, *, device="cuda", dtype=None) -> np.ndarray:
+def mm(T: int, m, A, H, *, device=None, dtype=None) -> np.ndarray:
     """Stacked joint mean (reference statespace:342-364)."""
     ctx = _ctx(device, dtype)
     A, H = map(np.atleast_2d, (A, H))
@@ -94,14 +94,14 @@ def mm(T: int, m, A, H, *, device="cuda", dtype=None) -> np.ndarray:
     return _np(jmom.joint_mean(T, _t(m, ctx), _t(A, ctx), _t(H, ctx)))
 
 
-def CZZ(T: int, S, A, Γ, *, device="cuda", dtype=None) -> np.ndarray:
+def CZZ(T: int, S, A, Γ, *, device=None, dtype=None) -> np.ndarray:
     """Latent-chain covariance (reference statespace:108-133)."""
     ctx = _ctx(device, dtype)
     S, A, Γ = (_t(a, ctx) for a in map(np.atleast_2d, (S, A, Γ)))
     return _np(jmom.latent_cov(T, S, A, Γ))
 
 
-def CZX(T: int, S, A, Γ, H, *, device="cuda", dtype=None) -> np.ndarray:
+def CZX(T: int, S, A, Γ, H, *, device=None, dtype=None) -> np.ndarray:
     """Latent-observed cross covariance (reference ``_CZX``,
     statespace:136-166)."""
     ctx = _ctx(device, dtype)
@@ -112,14 +112,14 @@ def CZX(T: int, S, A, Γ, H, *, device="cuda", dtype=None) -> np.ndarray:
     return _np(czx.permute(0, 2, 1, 3).reshape(Tn * d, Tn * l))
 
 
-def CXX(T: int, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> np.ndarray:
+def CXX(T: int, S, A, Γ, H, Λ, *, device=None, dtype=None) -> np.ndarray:
     """Observed-process covariance (reference statespace:225-256)."""
     ctx = _ctx(device, dtype)
     S, A, Γ, H, Λ = (_t(a, ctx) for a in map(np.atleast_2d, (S, A, Γ, H, Λ)))
     return _np(jmom.observed_cov(T, S, A, Γ, H, Λ))
 
 
-def CC(T: int, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> np.ndarray:
+def CC(T: int, S, A, Γ, H, Λ, *, device=None, dtype=None) -> np.ndarray:
     """Full joint covariance (reference statespace:259-291)."""
     ctx = _ctx(device, dtype)
     S, A, Γ, H, Λ = (_t(a, ctx) for a in map(np.atleast_2d, (S, A, Γ, H, Λ)))
@@ -154,7 +154,7 @@ def _grouped_log_prob(v, mean, cov, ctx) -> torch.Tensor:
     )[0]
 
 
-def full_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> np.ndarray:
+def full_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device=None, dtype=None) -> np.ndarray:
     """Joint log-pdf via analytic moments (reference statespace:367-426)."""
     ctx = _ctx(device, dtype)
     kw = dict(device=device, dtype=dtype)
@@ -162,7 +162,7 @@ def full_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> 
     return _np(gops.mvn_logpdf(_t(_pack(z, x), ctx), _t(mean, ctx), _t(cov, ctx)))
 
 
-def composite_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> np.ndarray:
+def composite_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device=None, dtype=None) -> np.ndarray:
     """Joint log-pdf via the generative factorization (reference
     statespace:429-496)."""
     ctx = _ctx(device, dtype)
@@ -179,7 +179,7 @@ def composite_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None
     return lp
 
 
-def hidden_log_prob(z, T, m, S, A, Γ, *, device="cuda", dtype=None) -> np.ndarray:
+def hidden_log_prob(z, T, m, S, A, Γ, *, device=None, dtype=None) -> np.ndarray:
     """Latent-chain log-pdf via analytic moments (reference
     statespace:499-540)."""
     ctx = _ctx(device, dtype)
@@ -192,7 +192,7 @@ def hidden_log_prob(z, T, m, S, A, Γ, *, device="cuda", dtype=None) -> np.ndarr
     ))
 
 
-def composite_hidden_log_prob(z, T, m, S, A, Γ, *, device="cuda", dtype=None) -> np.ndarray:
+def composite_hidden_log_prob(z, T, m, S, A, Γ, *, device=None, dtype=None) -> np.ndarray:
     """Latent-chain log-pdf via factorization (reference statespace:543-594).
     """
     ctx = _ctx(device, dtype)
@@ -206,7 +206,7 @@ def composite_hidden_log_prob(z, T, m, S, A, Γ, *, device="cuda", dtype=None) -
     return lp
 
 
-def observed_log_prob(x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> np.ndarray:
+def observed_log_prob(x, T, m, S, A, Γ, H, Λ, *, device=None, dtype=None) -> np.ndarray:
     """Observed-process log-pdf, hidden states marginalized analytically
     (reference statespace:597-651)."""
     ctx = _ctx(device, dtype)
@@ -219,7 +219,7 @@ def observed_log_prob(x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None) ->
     ))
 
 
-def full_marginalizable_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device="cuda", dtype=None) -> np.ndarray:
+def full_marginalizable_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device=None, dtype=None) -> np.ndarray:
     """Joint log-pdf with per-instance exact marginalization of non-finite
     coordinates (reference statespace:654-725): K12 on the card."""
     ctx = _ctx(device, dtype)
@@ -228,7 +228,7 @@ def full_marginalizable_log_prob(z, x, T, m, S, A, Γ, H, Λ, *, device="cuda", 
     return _np(_grouped_log_prob(_pack(z, x), mean, cov, ctx))
 
 
-def multivariate_normal_log_likelihood(x, μ, Σ, p=None, *, device="cuda", dtype=None) -> np.ndarray:
+def multivariate_normal_log_likelihood(x, μ, Σ, p=None, *, device=None, dtype=None) -> np.ndarray:
     """The reference hot kernel (statespace:728-773): per-row masked Gaussian
     log-likelihood, K12 on the card.  ``p`` (the guvectorize output buffer)
     is accepted for signature compatibility; it is filled and returned."""
@@ -242,7 +242,7 @@ def multivariate_normal_log_likelihood(x, μ, Σ, p=None, *, device="cuda", dtyp
     return out
 
 
-def marginalizable_gaussian_log_prob(x, μ=None, Σ=None, *, device="cuda", dtype=None) -> np.ndarray:
+def marginalizable_gaussian_log_prob(x, μ=None, Σ=None, *, device=None, dtype=None) -> np.ndarray:
     """Masked Gaussian log-pdf with identity/zero defaults (reference
     statespace:908-943), one factorization per row."""
     ctx = _ctx(device, dtype)

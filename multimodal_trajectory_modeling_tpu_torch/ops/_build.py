@@ -3,7 +3,8 @@
 At first use, ``csrc/*.cu`` are compiled by ``nvcc`` for ``sm_90a``, one
 ``nvcc`` per source, all started together, and linked into one shared
 library with a plain C interface, in ``_build/`` beside this package
-(listed in ``.gitignore``), and loaded with ``ctypes``.  The
+(listed in ``.gitignore``; ``config.enable_persistent_compilation_cache``
+moves it), and loaded with ``ctypes``.  The
 library's name carries a hash of the sources, the headers they share
 (``csrc/*.cuh``) and the flags, so an edit to any of them triggers a
 rebuild and a stale library is never loaded.  Nothing here runs at
@@ -117,6 +118,15 @@ def _nvcc() -> str:
             "kernels cannot be built"
         )
     return path
+
+
+def set_build_dir(path) -> None:
+    """Build into and load from ``path`` instead of ``_build/``.  Raises
+    once the library is loaded: the process keeps the library it has."""
+    global _BUILD_DIR
+    if library.cache_info().currsize:
+        raise RuntimeError("the kernel library is already loaded")
+    _BUILD_DIR = Path(path)
 
 
 def sources() -> list[Path]:

@@ -176,7 +176,7 @@ class KNNRegressor:
     picklable.  Small problems take the host path; large ones the device
     paths on ``device`` (default the card) in ``dtype``."""
 
-    def __init__(self, n_neighbors: int = 5, *, device="cuda", dtype=None):
+    def __init__(self, n_neighbors: int = 5, *, device=None, dtype=None):
         self.n_neighbors = int(n_neighbors)
         self.device = resolve_device(device)
         self.dtype = resolve_dtype(self.device, dtype)
@@ -184,7 +184,7 @@ class KNNRegressor:
         self._y = None
 
     @classmethod
-    def from_state(cls, state: dict, *, device="cuda", dtype=None):
+    def from_state(cls, state: dict, *, device=None, dtype=None):
         """A fitted regressor from ``{"n_neighbors", "_x", "_y"}`` (the JAX
         class's ``__getstate__()``) on ``device``."""
         reg = cls(state["n_neighbors"], device=device, dtype=dtype)
@@ -230,7 +230,7 @@ def grid_search_knn(
     k_grid: list[int],
     n_folds: int = 3,
     *,
-    device="cuda",
+    device=None,
     dtype=None,
 ) -> int:
     """Pick ``k`` by k-fold CV on negative MSE (first-best on ties),

@@ -1147,13 +1147,16 @@ def markov_em_from_features(
     d: int,
     l: int,
     assign_mode: str = "argmax",
+    reduce=None,
 ):
     """One EM iteration over Φ with the contract of
     ``pallas_markov.py:1464``: ``(assign, counts, switches, g (F, C),
     obj)``.  Folds ``Wg`` into the layout of Φ at this shape
     (:func:`_feature_layout`; and the int16 scales), runs
     K1 (:func:`markov_em_compact`) and unfolds its statistics into the
-    g-layout."""
+    g-layout.  ``reduce`` (the data-parallel trainers' all-reduce) maps
+    K1's ``(macc, counts, switches)`` before the unfolding, so int16
+    statistics are summed as exact integers."""
     scale = None
     if isinstance(phi, PhiQuant):
         phi, scale = phi.q, phi.scale
@@ -1162,6 +1165,8 @@ def markov_em_from_features(
     assign, counts, switches, macc, obj = markov_em_compact(
         phi, prev_assign, wc, assign_mode=assign_mode
     )
+    if reduce is not None:
+        macc, counts, switches = reduce(macc, counts, switches)
     g = macc[pos].to(Wg.dtype)
     if scale is not None:
         g = g * scale[pos][:, None].to(g.dtype)
@@ -1339,13 +1344,15 @@ def markov_em_from_features_multi(
     l: int,
     assign_mode: str = "argmax",
     force_prev=None,  # (R,) int/bool; 1 ⇒ the slot takes prev
+    reduce=None,
 ):
     """R-restart EM iteration over Φ with the contract of
     ``pallas_markov.py:1658``: ``(assign (R, n), counts (R, C), switches
     (R,), g (R, F, C), obj (R,))``.  Folds ``Wg`` (and the int16 scales)
     into the layout of Φ at this shape, runs K3
     (:func:`markov_em_compact_multi`) and unfolds its statistics as
-    :func:`markov_em_from_features` does, restart by restart."""
+    :func:`markov_em_from_features` does, restart by restart; ``reduce``
+    is :func:`markov_em_from_features`'s."""
     scale = None
     if isinstance(phi, PhiQuant):
         phi, scale = phi.q, phi.scale
@@ -1356,6 +1363,8 @@ def markov_em_from_features_multi(
     assign, counts, switches, macc, obj = markov_em_compact_multi(
         phi, prev_assign, wc, force_prev, assign_mode=assign_mode
     )
+    if reduce is not None:
+        macc, counts, switches = reduce(macc, counts, switches)
     g = macc[:, pos].to(Wg.dtype)
     if scale is not None:
         g = g * scale[pos][None, :, None].to(g.dtype)

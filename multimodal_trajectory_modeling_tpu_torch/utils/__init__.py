@@ -1,2 +1,3 @@
-"""Training observability (``trace``), the numpy state-space helpers
-(``state_space``) and the ADNI adapter (``adni``)."""
+"""Training observability (``trace``), step checkpoints (``checkpoint``),
+the numpy state-space helpers (``state_space``) and the ADNI adapter
+(``adni``)."""

@@ -1,15 +1,23 @@
-"""Per-iteration EM metrics of the host-stepped training loop.
+"""Training observability: per-iteration EM metrics and the profiler hook.
 
-Counterpart of ``multimodal_trajectory_modeling_tpu/utils/trace.py``
-(``EMTrace`` :27).  Its ``profile`` wraps ``jax.profiler`` and has no
-counterpart here: ``torch.profiler.profile`` is the card's tool.
+Counterpart of ``multimodal_trajectory_modeling_tpu/utils/trace.py``:
+``EMTrace`` (:27) records the host-stepped loop's iterations; ``profile``
+(:51), which wraps ``jax.profiler.trace`` there, wraps
+``torch.profiler.profile`` here and writes a Chrome trace.
 """
 
 from __future__ import annotations
 
+import contextlib
+import os
+import time
 from dataclasses import dataclass, field
 
-__all__ = ["EMTrace"]
+import torch
+
+from multimodal_trajectory_modeling_tpu_torch.device import resolve_device
+
+__all__ = ["EMTrace", "profile"]
 
 
 @dataclass
@@ -38,3 +46,34 @@ class EMTrace:
 
     def __len__(self):
         return len(self.iterations)
+
+
+@contextlib.contextmanager
+def profile(logdir: str | os.PathLike, *, device=None):
+    """Profile the enclosed block with ``torch.profiler`` (host activity,
+    and CUDA activity when ``device``, default the card, is a card) and
+    write its Chrome trace into ``logdir``; yields the profiler, whose
+    ``key_averages()`` sum the recorded events.
+
+    Usage::
+
+        with trace.profile("tmp/em-profile"):
+            mdl.train(n_steps=10)
+    """
+    from torch.profiler import ProfilerActivity
+
+    activities = [ProfilerActivity.CPU]
+    if resolve_device(device).type == "cuda":
+        activities.append(ProfilerActivity.CUDA)
+    os.makedirs(logdir, exist_ok=True)
+    t0 = time.perf_counter()
+    prof = torch.profiler.profile(activities=activities)
+    prof.start()
+    try:
+        yield prof
+    finally:
+        prof.stop()
+        prof.export_chrome_trace(
+            os.path.join(logdir, f"trace-{os.getpid()}-{time.time_ns()}.json")
+        )
+        print(f"profile captured to {logdir} ({time.perf_counter()-t0:.1f}s)")

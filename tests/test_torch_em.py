@@ -4,13 +4,18 @@ identical assignments, iteration count and status, parameters to 1e-10 —
 with Φ materialized once (K2 + K1) and rebuilt in every iteration
 (``precompute=False``, K4a)."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+from jax.sharding import Mesh
 
 from multimodal_trajectory_modeling_tpu.models import em as jem
 from multimodal_trajectory_modeling_tpu_torch.models import em as tem
+from multimodal_trajectory_modeling_tpu_torch.parallel.mesh import make_mesh
+
+from _torch_parallel_ranks import one_rank_group
 
 
 def _two_cluster_data(seed, n=400, T=5, d=2, l=3):
@@ -144,10 +149,12 @@ def test_train_em_markov_init_abort_matches_jax():
         np.testing.assert_array_equal(a, b)
 
 
-def test_unported_branches_raise(monkeypatch):
-    """What still raises (the data-parallel pool, bfloat16 Φ); and
-    ``precompute=False`` past T·s = 512, once raising for kernel K6, runs
-    it and matches JAX."""
+def test_unported_branches_raise(monkeypatch, tmp_path):
+    """What still raises (bfloat16 Φ); what once raised and now runs: the
+    data-parallel pool (``mesh=``), here over a one-rank gloo group against
+    JAX's pool on a one-device mesh (``test_torch_parallel.py`` holds it on
+    two ranks), and ``precompute=False`` past T·s = 512 (kernel K6),
+    against JAX."""
     z, x, lens, labels = _two_cluster_data(4, n=50)
     args = (
         tem.mixture_params_from_numpy(_init_params(4, 2, 2, 3), device="cpu"),
@@ -156,8 +163,19 @@ def test_unported_branches_raise(monkeypatch):
         torch.from_numpy(x),
         torch.from_numpy(lens),
     )
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tem.train_em_markov_pool([args[0]], [labels], *args[2:], mesh=object())
+    with one_rank_group(str(tmp_path)):
+        (got, *_), _stats = tem.train_em_markov_pool(
+            [args[0]], [labels], *args[2:], mesh=make_mesh()
+        )
+    want, = jem.train_em_markov_pool(
+        [jem.MixtureParams(*map(jnp.asarray, _init_params(4, 2, 2, 3)))], [labels],
+        jnp.asarray(z), jnp.asarray(x), jnp.asarray(lens),
+        mesh=Mesh(np.asarray(jax.devices()[:1]), ("data",)),
+    )
+    assert got[2:] == (int(want[2]), int(want[3])) and got[2] >= 1
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    for a, b in zip(tem.mixture_params_to_numpy(got[0]), want[0]):
+        np.testing.assert_allclose(a, np.asarray(b), rtol=1e-10, atol=1e-10)
     monkeypatch.setenv("MTM_MARKOV_PHI", "bf16")
     with pytest.raises(NotImplementedError, match="bfloat16"):
         tem.train_em_markov(*args)

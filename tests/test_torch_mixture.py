@@ -82,8 +82,9 @@ def test_train_fast_matches_jax_on_adni(adni_data, seed):
 
 
 def test_unported_routes_raise(adni_data, monkeypatch):
-    """What still raises: out-of-core training.  What once raised and now
-    runs: the observed-only inference family (held against JAX here and
+    """What once raised and now runs: out-of-core training
+    (``MTM_MARKOV_OOC=1``, held against JAX's route here and in
+    ``test_torch_ooc.py``), the observed-only inference family (held against JAX here and
     in ``test_torch_observed.py``), ``bic`` (held against JAX),
     ``print_model`` (the same text as JAX's; the other reports in
     ``test_torch_adni.py``), the verbose transcript (its own parity
@@ -106,8 +107,14 @@ def test_unported_routes_raise(adni_data, monkeypatch):
     assert len(printed[0]) > 20 and printed[0] == printed[1]
     np.testing.assert_allclose(tm.bic(), jm.bic(), rtol=1e-12)
     monkeypatch.setenv("MTM_MARKOV_OOC", "1")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tm.train(fast=True)
+    monkeypatch.setenv("MTM_MARKOV_OOC_CHUNK", "200")
+    for m in (tm, jm):
+        m.train(fast=True)
+    assert tm.last_iterations > 1 and tm.last_trained is not None
+    np.testing.assert_array_equal(tm.cluster_assignment, jm.cluster_assignment)
+    for name in _PARAM_LISTS:
+        np.testing.assert_allclose(np.asarray(getattr(tm, name)), np.asarray(getattr(jm, name)),
+                                   rtol=1e-10, atol=1e-10)
     monkeypatch.delenv("MTM_MARKOV_OOC")
     rng = np.random.default_rng(0)
     zg, xg = zs.copy(), x.copy()  # unstructured missingness

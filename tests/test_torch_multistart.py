@@ -38,6 +38,10 @@ from multimodal_trajectory_modeling_tpu_torch.models import mixture as tmixture
 from multimodal_trajectory_modeling_tpu_torch.models import (
     MMLinGaussSS_marginalizable as TorchMixture,
 )
+from multimodal_trajectory_modeling_tpu_torch.parallel.mesh import make_mesh
+from jax.sharding import Mesh as JaxMesh
+
+from _torch_parallel_ranks import one_rank_group
 
 _PARAM_LISTS = (
     "cluster_propensities",
@@ -267,13 +271,22 @@ def test_pool_edge_cases(case):
     _assert_results_match(got, want)
 
 
-def test_pool_unported_options_raise():
+def test_pool_unported_options_raise(tmp_path):
+    """The data-parallel pool (``mesh=``), once raising, runs: over a
+    one-rank gloo group, 9 candidates through R=3 slots give the JAX
+    pool's results on a one-device mesh (its lanes padded to the TPU
+    block, the port's not; ``test_torch_parallel.py`` holds two ranks)."""
     (z, x, lens), ps, assigns = _pool_problem()
-    with pytest.raises(NotImplementedError, match="item 9"):
-        tem.train_em_markov_pool(
-            [tem.mixture_params_from_numpy(p, device="cpu") for p in ps[:2]], assigns[:2],
-            _t(z), _t(x), _t(lens), mesh=object(),
+    with one_rank_group(str(tmp_path)):
+        got, _stats = tem.train_em_markov_pool(
+            [tem.mixture_params_from_numpy(p, device="cpu") for p in ps], assigns,
+            _t(z), _t(x), _t(lens), R=3, n_steps=5, mesh=make_mesh(),
         )
+    want = jem.train_em_markov_pool(
+        [_jparams(p) for p in ps], assigns, jnp.asarray(z), jnp.asarray(x), jnp.asarray(lens),
+        R=3, n_steps=5, mesh=JaxMesh(np.asarray(jax.devices()[:1]), ("data",)),
+    )
+    _assert_results_match(got, want)
 
 
 @pytest.fixture(scope="module")
