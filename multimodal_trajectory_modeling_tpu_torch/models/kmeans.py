@@ -10,9 +10,9 @@ and ``_k_means_lloyd.pyx``):
 
 - the column means are subtracted from ``X``; the tolerance is
   ``_TOL`` = 1e-4 times the mean column variance;
-- each of the ``_N_INIT`` = 10 runs is seeded by greedy k-means++ with
-  ``2 + int(log k)`` local trials, all runs drawing from one
-  ``np.random.RandomState(seed)``;
+- each of the ``n_init`` runs (default ``_N_INIT`` = 10) is seeded by
+  greedy k-means++ with ``2 + int(log k)`` local trials, all runs drawing
+  from one ``np.random.RandomState(seed)``;
 - Lloyd iterations stop at identical labels, else when the squared center
   shift is within the tolerance, after at most ``_MAX_ITER`` = 300; empty
   clusters are relocated to the points farthest from their centers; a run
@@ -144,10 +144,12 @@ def kmeans_labels(
     n_clusters: int,
     *,
     random_state: int,
+    n_init: int = _N_INIT,
 ) -> np.ndarray:
-    """``KMeans(n_clusters, init="k-means++", n_init=10,
+    """``KMeans(n_clusters, init="k-means++", n_init=n_init,
     random_state=random_state).fit_predict(X)`` of scikit-learn, for dense
-    ``X (n, p)``: int32 labels ``(n,)``."""
+    ``X (n, p)``: int32 labels ``(n,)``.  ``n_init=1`` is the k-means start
+    of scikit-learn's ``GaussianMixture(init_params="kmeans")``."""
     X = np.array(X, dtype=np.float64, order="C")
     if X.ndim != 2 or X.shape[0] < n_clusters:
         raise ValueError(
@@ -160,7 +162,7 @@ def kmeans_labels(
     x_sq = np.einsum("ij,ij->i", X, X)
     rs = np.random.RandomState(random_state)
     best_labels, best_inertia = None, None
-    for _ in range(_N_INIT):
+    for _ in range(n_init):
         centers = _kmeans_plusplus(X, n_clusters, x_sq, rs)
         labels, inertia = _lloyd(X, centers, n_clusters, tol=tol)
         if best_inertia is None or (

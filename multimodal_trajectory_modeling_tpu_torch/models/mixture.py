@@ -60,6 +60,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
+from multimodal_trajectory_modeling_tpu_torch import native
 from multimodal_trajectory_modeling_tpu_torch.device import (
     resolve_device,
     resolve_dtype,
@@ -283,8 +284,10 @@ class MMLinGaussSS_marginalizable:
     def _packed(self, states=None, observations=None, T0=None):
         """A dataset's first ``T0`` steps (all by default) packed for the
         dense route: ``(T0, z, x, v (n, T0·(d+l)), patterns (P, D) bool,
-        pattern_id (n,) numpy int32)`` on ``device``, patterns in
-        ``np.unique`` order.  The model's own data (``states=None``) is
+        pattern_id (n,) numpy int32)`` on ``device``, packed and grouped
+        on the host by :mod:`..native` (patterns in order of first
+        appearance, ``np.unique``'s past its cap of 4096), as the JAX
+        package does.  The model's own data (``states=None``) is
         packed once per ``T0``, cached under ``("joint", T0)``, its z and x
         views of :meth:`_masked_batch`."""
         own = states is None
@@ -296,8 +299,8 @@ class MMLinGaussSS_marginalizable:
             return self._device_cache[key]
         z = np.atleast_3d(states)[:T0].astype(float)
         x = np.atleast_3d(observations)[:T0].astype(float)
-        v_np = em.pack_joint(torch.from_numpy(z), torch.from_numpy(x)).numpy()
-        patterns, pid = gops.pattern_groups(v_np)
+        v_np = native.pack_joint(z, x)
+        patterns, pid = native.pattern_groups(v_np)
         if own:
             z_dev, x_dev = (a[:T0] for a in self._masked_batch())
         else:

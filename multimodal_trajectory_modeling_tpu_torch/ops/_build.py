@@ -100,6 +100,8 @@ _SIGNATURES = {
         _I, _I, _P, _P, _P, _P, _LL, _I, _I, _I, _I, _I, _I, _I, _I, _I, _P,
     ],
     "mtm_markov_features_longT_staged_config": [_I, _I, _I, _I, _I, _I, _I, _P],
+    "mtm_phi_stream_blocks": [_I, _I, _LL, _LL],
+    "mtm_phi_stream": [_I, _I, _P, _LL, _LL, _P, _P, _I, _P, _P],
     "mtm_markov_em_batch_config": [_I, _I, _I, _I, _I, _I, _I, _P],
     "mtm_markov_em_batch": [
         _I, _I, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P, _P,

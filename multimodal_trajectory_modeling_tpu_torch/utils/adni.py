@@ -267,3 +267,71 @@ def plot_2d_trajectories(
         fig.savefig(savename, bbox_inches="tight", transparent=True)
         if show:
             plt.show()
+
+
+def _summary_stats() -> None:
+    """The data's summary printout (``adni.py:253``): lengths, the
+    biomarkers' moments, the outcome shares overall, by length and at the
+    first visit, and the profiling table's means and spreads, under the
+    JAX module's pandas float format."""
+    import pandas as pd
+
+    with pd.option_context("display.float_format", _FLOAT_FORMAT):
+        print(f"Generating {name} summary stats...")
+        z, x, d, ids, time, mmse = get_trajectories(return_mmse=True)
+        length = np.argmin(
+            np.all(np.isfinite(np.concatenate([x, z], axis=-1)), axis=-1), axis=0
+        )
+        length[length == 0] = x.shape[0]
+        print("lengths: ", dict(zip(*np.unique(length, return_counts=True))))
+
+        finals = get_final_diagnoses(d).ravel()
+        amyloid, gm = np.split(z, 2, axis=-1)
+        print(f"{np.nanmean(amyloid)=:.2f}, {np.nanstd(amyloid)=:.2f}")
+        print(f"{np.nanmean(gm)=:.3f}, {np.nanstd(gm)=:.2f}")
+
+        print("Breakdown by diagnosis|".ljust(79, "-"))
+        print(
+            pd.Series(finals, name="diagnosis")
+            .value_counts(normalize=True)
+            .loc[diagnosis_list]
+        )
+
+        ells = sorted(set(length))
+        print("Diagnoses by length|".ljust(79, "-"))
+        print(
+            _prevalence_table(
+                "length",
+                ells,
+                [np.mean(length == ell) for ell in ells],
+                [
+                    [np.sum(finals[length == ell] == dx) for dx in diagnosis_list]
+                    for ell in ells
+                ],
+            )
+        )
+
+        init = pd.DataFrame(
+            data={
+                "dx": finals,
+                "amyloid": z[0, :, 0],
+                "gm": z[0, :, 1],
+                "adni_mem": x[0, :, 0],
+                "adni_ef": x[0, :, 1],
+                "adas_13": x[0, :, 2],
+                "moca": x[0, :, 3],
+            }
+        )
+        print("init|".ljust(79, "-"))
+        print(f"{init.mean(numeric_only=True)}")
+        print("init x dx|".ljust(79, "-"))
+        dx_list = [dx for dx in diagnosis_list if dx != "MCI_tbd"]
+        print(f"{init.groupby('dx').agg('mean').loc[dx_list]}")
+
+        lookup = return_profiling_dataframe(ids[0])
+        print("Breakdown by features|".ljust(79, "-"))
+        print(lookup.agg(["mean", "std"]).T)
+
+
+if __name__ == "__main__":
+    _summary_stats()

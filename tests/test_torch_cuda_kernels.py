@@ -1,4 +1,4 @@
-"""The CUDA kernels K1-K15 against their plain torch versions on the
+"""The CUDA kernels K1-K16 against their plain torch versions on the
 card.  Without a card every test here skips; on the card run
 
     python -m pytest --noconftest -m cuda tests/test_torch_cuda_kernels.py
@@ -76,8 +76,11 @@ the TF32 split's ~2⁻²¹ a product and float32 sums) or 1e-12 (float64) of
 the plain version in the kernel's type is not finite, the same NaN, +Inf
 or −Inf; K8 flipping only at near ties (1e-4 / 1e-9) of the float64
 scores, and taking the plain version's cluster where the plain scores in
-the kernel's type peak at a non-finite value (a NaN wins).  Every kernel
-gives the same bits from run to run, float statistics included.
+the kernel's type peak at a non-finite value (a NaN wins).  K16 (the Φ
+stream sum) equals its plain version in int16 (both wrap modulo 2³²) and
+agrees to 2e-6·Σ|φ| in float32 and bfloat16 (float sums in another
+order).  Every kernel gives the same bits from run to run, float
+statistics included.
 """
 
 import numpy as np
@@ -2398,3 +2401,55 @@ def test_knn_device_paths_on_the_card(cuda, monkeypatch, stream_threshold):
     for k in (1, 2, 5):
         got = knn.KNNRegressor(k, device="cuda", dtype=torch.float64).fit(Xd, Yd).predict(Qd)
         np.testing.assert_allclose(got, Yd[order[:, :k]].mean(1), rtol=1e-12, atol=1e-12)
+
+
+# K16 (csrc/phi_stream.cu): seed·0 + Σφ over the whole buffer.  int16 wraps
+# modulo 2³² and equals the plain version exactly; float32 and bfloat16 sum
+# as float and agree with the float64 sum to 2e-6·Σ|φ|; two calls give the
+# same bits; a NaN seed gives NaN.  n covers a tail shorter than a vector,
+# one vector, and sizes past one block's loads and past the persistent grid;
+# the tile is the default (1024 vectors: one pass of a block's loop a tile)
+# and bench_phi_floor's 8192 and 16384 elements (two to four passes).
+@pytest.mark.parametrize("tile", [None, 8192, 16384])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.int16])
+@pytest.mark.parametrize("shape", [(1, 3), (8, 5000), (7, 20011), (112, 100_003)])
+def test_phi_stream_matches_plain(cuda, dtype, shape, tile):
+    from multimodal_trajectory_modeling_tpu_torch.ops import phi_stream as ps
+
+    rng = np.random.default_rng(16)
+    base = rng.normal(size=shape).astype(np.float32)
+    if dtype == torch.int16:
+        phi = torch.tensor(np.clip(base * 1000, -32000, 32000).astype(np.int16), device=cuda)
+    else:
+        phi = torch.tensor(base, device=cuda).to(dtype)
+    seed = torch.zeros((), dtype=ps.accumulator_dtype(dtype), device=cuda)
+    before = ps.phi_stream_sum.launches
+    got = ps.phi_stream_sum(phi, seed, tile=tile)
+    again = ps.phi_stream_sum(phi, got, tile=tile)
+    assert ps.phi_stream_sum.launches == before + 2
+    want = ps.phi_stream_sum_plain(phi, seed)
+    assert got.dtype == ps.accumulator_dtype(dtype)
+    if dtype == torch.int16:
+        assert int(got) == int(want) == int(again)
+    else:
+        scale = float(phi.double().abs().sum())
+        assert abs(float(got) - float(want)) <= 2e-6 * scale
+        assert got.view(torch.int32).item() == again.view(torch.int32).item()
+    if dtype != torch.int16:
+        nan = ps.phi_stream_sum(phi, torch.tensor(float("nan"), device=cuda), tile=tile)
+        assert bool(torch.isnan(nan))
+
+
+def test_phi_stream_wraps_and_refuses(cuda):
+    from multimodal_trajectory_modeling_tpu_torch.ops import phi_stream as ps
+
+    big = torch.full((4, 1 << 20), 32767, dtype=torch.int16, device=cuda)
+    seed = torch.zeros((), dtype=torch.int32, device=cuda)
+    assert int(ps.phi_stream_sum(big, seed)) == int(ps.phi_stream_sum_plain(big, seed))
+    with pytest.raises(ValueError):
+        ps.phi_stream_sum(big[:, 1:], seed)  # not contiguous
+    flat = torch.zeros(1 << 12, dtype=torch.float32, device=cuda)
+    with pytest.raises(ValueError):
+        ps.phi_stream_sum(flat[1:], torch.zeros((), device=cuda))  # 4-byte aligned only
+    with pytest.raises(ValueError):
+        ps.phi_stream_sum(flat, seed)  # int32 seed for float Φ
